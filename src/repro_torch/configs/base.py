@@ -23,13 +23,21 @@ class ModelConfig:
     mrope_sections: tuple = ()
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
+    # SSM (mamba2 / zamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    attn_every: int = 0  # zamba2: shared attention block cadence
     # numerics: backbone weights are stored in param_dtype (see
     # diffusion.wrapper.init_wrapper), activations run in compute_dtype
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
-    # kernels: route rmsnorm / attention through repro_torch.kernels —
-    # the CUDA kernels for CUDA tensors, their plain versions on the CPU
-    # (bitwise-neutral there). False -> plain PyTorch everywhere.
+    # kernels: route rmsnorm / attention / the SSD chunk block through
+    # repro_torch.kernels — the CUDA kernels for CUDA tensors, their plain
+    # versions on the CPU (bitwise-neutral there). False -> plain PyTorch
+    # everywhere.
     use_kernels: bool = False
     source: str = ""
 
@@ -59,8 +67,9 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     table = _REDUCED if reduced else _REGISTRY
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(table)} "
-                       f"(the port registers only the paper-native denoiser "
-                       f"so far; LM families: ROADMAP.md queue 1 item 13)")
+                       f"(the port registers the denoiser backbones only: "
+                       f"the paper-native DiT and the zamba2 hybrid; LM "
+                       f"families: ROADMAP.md queue 1 item 13)")
     return table[name]()
 
 

@@ -15,7 +15,10 @@
 // output accumulator. Sq and Sk tails are masked in the kernel, so no shape
 // needs padding or a fallback path. Causal: KV tiles wholly past the
 // diagonal of the q tile are skipped; masked scores inside a tile take
-// -1e30 like the plain version.
+// -1e30 like the plain version. Head dims 16, 32, 64, 80 and 128 are
+// compiled: a thread keeps DH/4 accumulators, so DH need only be a multiple
+// of 4; above 48 KB (DH >= 64) the launcher raises the block's dynamic
+// shared-memory limit (DH 80: ~77 KB, DH 128: ~115 KB).
 //
 // Bound: at the CHORDS-DiT serving shape (B=32, S=64, H=24, Dh=128, bf16)
 // the card's bound is bytes — 25 MB of q/k/v/o against 1.6 GFLOP that the
@@ -189,10 +192,14 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o, int b,
                 int sq, int sk, int nh, int nkv, int dh, float scale,
                 int causal, void* stream) {
   switch (dh) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, b, sq, sk, nh, nkv, scale, causal, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, b, sq, sk, nh, nkv, scale, causal, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, b, sq, sk, nh, nkv, scale, causal, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, b, sq, sk, nh, nkv, scale, causal, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, b, sq, sk, nh, nkv, scale, causal, stream);
     default:

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, one family per TPU kernel they
 replace: ``rectify`` (fused CHORDS step + rectify, and its accept variant),
-``rmsnorm`` and ``flash_attention``. Each family keeps the reference's
+``rmsnorm``, ``flash_attention`` and ``ssd_scan`` (the Mamba2 SSD
+intra-chunk block). Each family keeps the reference's
 three-file split — ``ref.py`` (plain PyTorch version), ``kernel.py``
 (ctypes binding of ``csrc/<family>.cu``) and ``ops.py`` (dispatcher).
 
@@ -28,10 +29,12 @@ def _wrappers() -> Dict[str, object]:
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.rectify import kernel as rk
     from repro_torch.kernels.rmsnorm import kernel as rn
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     return {"fused_step_rectify": rk.fused_step_rectify,
             "fused_step_rectify_accept": rk.fused_step_rectify_accept,
             "rmsnorm": rn.rmsnorm,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "ssd_chunk": ssd.ssd_chunk}
 
 
 def launch_counts() -> Dict[str, int]:

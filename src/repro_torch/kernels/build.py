@@ -29,7 +29,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-FAMILIES = ("rectify", "rmsnorm", "flash_attention")
+FAMILIES = ("rectify", "rmsnorm", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -7,9 +7,11 @@ tiles, q pre-scaled by ``1/sqrt(Dh)``, f32 m/l/acc, optional causal tile
 skip, GQA head ``h -> h // (H/KV)``. The card's bound at the serving shape
 is bytes (q/k/v/o once), but this first kernel runs the two products as
 f32 FMAs on the CUDA cores, which bound it in practice; tensor-core
-products are later work. Sq/Sk tails are masked in the kernel. Head dims 32, 64 and 128
-are compiled. CUDA tensors only; ``ops.py`` picks the plain version for CPU
-tensors. Launches are counted in ``flash_attention.launches``.
+products are later work. Sq/Sk tails are masked in the kernel. Head dims
+16, 32, 64, 80 and 128 are compiled (80: ``zamba2-2.7b``'s shared block;
+16: its reduced config). CUDA tensors only; ``ops.py`` picks the plain
+version for CPU tensors. Launches are counted in
+``flash_attention.launches``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 
 def _lib():

@@ -2,14 +2,19 @@
 ``repro.launch.serve``.
 
 The default serves ``chords-dit-xl`` (random weights from ``--seed``) with
-the continuous-batching slot engine; ``--static`` serves the same drift
-with the padded static-batch engine. ``--use-kernels`` routes the
-backbone's RMSNorm and attention and the fused step+rectify(+accept) round
-through the port's CUDA kernels (their plain versions on ``--device cpu``).
+the continuous-batching slot engine; ``--arch zamba2-2.7b`` serves the
+hybrid denoiser (Mamba2 layers and a shared attention block) instead.
+``--static`` serves the same drift with the padded static-batch engine.
+``--use-kernels`` routes the backbone's RMSNorm, attention and SSD chunk
+block and the fused step+rectify(+accept) round through the port's CUDA
+kernels (their plain versions on ``--device cpu``).
 
   python -m repro_torch.launch.serve --steps 50 --cores 8 --slots 4 \
       --use-kernels
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --use-kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --reduced --device cpu
 
 Flags of the reference not honored yet (``--overlap``, ``--min-slots``,
 ``--max-slots``, ``--device-rounds``, ``--lane-mode``, ``--trace-out``)
@@ -49,8 +54,9 @@ def main(argv=None):
                     help="per-request deadline in lockstep rounds from "
                          "submission (default: no deadline)")
     ap.add_argument("--use-kernels", action="store_true",
-                    help="route RMSNorm, attention and the fused CHORDS "
-                         "round through the port's CUDA kernels")
+                    help="route RMSNorm, attention, the SSD chunk block "
+                         "and the fused CHORDS round through the port's "
+                         "CUDA kernels")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,

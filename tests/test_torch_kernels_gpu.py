@@ -5,7 +5,11 @@ CPU mode). This file imports no JAX, so it runs on the GPU host as
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_gpu.py
 
 Tolerances: rectify ``out`` bitwise, its sums ``rtol=1e-5`` (reduction
-order); rmsnorm 1e-5 f32 / 5e-2 bf16; flash 2e-5 f32 / 2e-2 bf16.
+order); rmsnorm 1e-5 f32 / 5e-2 bf16; flash 2e-5 f32 / 2e-2 bf16;
+``ssd_chunk`` max(1e-4, 1e-5 * max|ref|): the two versions sum up to Lc*N
+f32 products in different orders, and 1e-5 of the largest output is ~84 of
+its ulps (the sweep of ``tests/test_kernels.py`` holds at 1e-4 itself, in
+``chip_smoke.py``).
 """
 import pytest
 import torch
@@ -14,6 +18,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rectify.ref import (fused_step_rectify_accept_ref,
                                              fused_step_rectify_ref)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_batched_ref
 
 
 @pytest.fixture
@@ -67,6 +72,38 @@ def test_flash_kernel(cuda, causal, kv, dtype, tol):
                                atol=tol, rtol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 80])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_head_dims(cuda, dh, dtype, tol):
+    """The hybrid's head dims: 80 (``zamba2-2.7b``) and 16 (its reduced
+    config), causal as its shared block runs, with a 77-row tail."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    q, k, v = (torch.randn(2, 77, 32, dh, generator=cuda, device="cuda")
+               .to(dtype) for _ in range(3))
+    torch.testing.assert_close(flash_attention(q, k, v, True).float(),
+                               attention_ref(q, k, v, True).float(),
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,h,lc,n,hd", [(32, 80, 64, 64, 64),  # serving
+                                         (3, 4, 100, 16, 16)])  # a tail
+def test_ssd_chunk_kernel(cuda, g, h, lc, n, hd):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
+    c, b = (torch.randn(g, lc, n, generator=cuda, device="cuda")
+            for _ in range(2))
+    xdt = torch.randn(g, h, lc, hd, generator=cuda, device="cuda")
+    cum = -torch.randn(g, h, lc, generator=cuda, device="cuda").abs() \
+        .cumsum(-1)
+    y, s = ssd_chunk(c, b, xdt, cum)
+    ry, rs = ssd_chunk_batched_ref(c, b, xdt, cum)
+    for out, ref in ((y, ry), (s, rs)):
+        tol = max(1e-4, 1e-5 * float(ref.abs().max()))
+        torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+
+
 def test_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never fall back: a CPU tensor is an error (the
     dispatchers in ops.py pick the plain versions for CPU tensors)."""
@@ -77,3 +114,7 @@ def test_wrappers_refuse_cpu_tensors():
         flash_attention(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm(torch.zeros(4, 8), torch.ones(8))
+    from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
+    cb = torch.zeros(2, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk(cb, cb, torch.zeros(2, 1, 8, 8), torch.zeros(2, 1, 8))
