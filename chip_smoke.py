@@ -13,7 +13,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               timed (median of CUDA-event timings) beside the plain
               version, one library call where one computes the same
               function, and its bound (bytes or operations at the H100's
-              published peaks);
+              published peaks); flash over every case at every compiled
+              head dim through both routes (bf16: the tensor-core kernel,
+              f32: the CUDA-core kernel), ``ssd_chunk`` also at H 1, 3
+              and 80 with Lc 1, 64, 100 and 256;
 4. parity   — the serving path on the card against the same path on the
               CPU on a closed-form drift (scheduling exact, samples 1e-4);
 5. drift    — ``chords-dit-xl`` at full width and depth, random weights
@@ -25,7 +28,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the launch counters, reset just before each engine runs,
               show that every kernel ran on its path; then a few rounds of
               a full grid under ``torch.profiler`` say where a round's
-              device time goes and how long the device sits idle, and one
+              device time goes and how long the device sits idle (each
+              backbone kernel must show under its name with the launches
+              the counters predict), and one
               profiled ``ChordsEngine`` batch gives the device time of its
               rectify kernel;
 7. ssd      — one ``zamba2-2.7b`` Mamba2 layer at full width (d_model
@@ -259,39 +264,44 @@ def _flash_flops(b, sq, sk, h, dh, causal):
 
 
 def check_flash(gen, records):
+    """Every case of the sweep at every compiled head dim, through both
+    routes: bf16 (the tensor-core kernel) within 2e-2 and f32 (the
+    CUDA-core kernel) within 2e-5 of the plain version; both routes timed
+    at the DiT shape, the bf16 route also at the hybrid's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention.ref import attention_ref
     cases = []
-    sweep = [  # (b, sq, sk, h, kv, dh, causal)
-        (32, 64, 64, 24, 24, 128, False),   # the serving shape
-        (2, 1024, 1024, 24, 24, 128, False),
-        (2, 1024, 1024, 24, 8, 128, True),  # GQA, causal, many KV tiles
-        (2, 200, 200, 24, 8, 128, True),    # tails
-        (3, 200, 333, 4, 2, 64, False),
-        (4, 77, 77, 4, 4, 32, True),
-        (32, 64, 64, 32, 32, 80, True),     # the hybrid's shared block
-        (2, 200, 200, 32, 32, 80, True),
-        (4, 77, 77, 4, 4, 16, True),        # its reduced config
-        (2, 64, 64, 4, 4, 16, False),
+    sweep = [  # (b, sq, sk, h, kv, causal), each at every head dim
+        (32, 64, 64, 24, 24, False),    # the DiT serving shape
+        (32, 64, 64, 32, 32, True),     # the hybrid's shared block
+        (2, 1024, 1024, 24, 24, False),
+        (2, 1024, 1024, 24, 8, True),   # GQA, causal, many KV tiles
+        (2, 200, 200, 24, 8, True),     # tails
+        (3, 200, 333, 4, 2, False),
+        (4, 77, 77, 4, 4, True),
+        (2, 64, 64, 4, 4, False),
     ]
-    for b, sq, sk, h, kv, dh, causal in sweep:
-        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            q = torch.randn(b, sq, h, dh, generator=gen, device="cuda").to(dt)
-            k = torch.randn(b, sk, kv, dh, generator=gen, device="cuda") \
-                .to(dt)
-            v = torch.randn(b, sk, kv, dh, generator=gen, device="cuda") \
-                .to(dt)
-            out = K.flash_attention(q, k, v, causal=causal)
-            ref = attention_ref(q, k, v, causal)
-            err = max_err(out, ref)
-            if not err <= tol:
-                raise AssertionError(
-                    f"flash {(b, sq, sk, h, kv, dh, causal)} {dt}: err "
-                    f"{err} > {tol}")
-            cases.append({"shape": [b, sq, sk, h, kv, dh], "causal": causal,
-                          "dtype": str(dt), "max_abs_err": err, "tol": tol})
+    for b, sq, sk, h, kv, causal in sweep:
+        for dh in K.HEAD_DIMS:
+            for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                q = torch.randn(b, sq, h, dh, generator=gen, device="cuda") \
+                    .to(dt)
+                k = torch.randn(b, sk, kv, dh, generator=gen, device="cuda") \
+                    .to(dt)
+                v = torch.randn(b, sk, kv, dh, generator=gen, device="cuda") \
+                    .to(dt)
+                out = K.flash_attention(q, k, v, causal=causal)
+                ref = attention_ref(q, k, v, causal)
+                err = max_err(out, ref)
+                if not err <= tol:
+                    raise AssertionError(
+                        f"flash {(b, sq, sk, h, kv, dh, causal)} {dt}: err "
+                        f"{err} > {tol}")
+                cases.append({"shape": [b, sq, sk, h, kv, dh],
+                              "causal": causal, "dtype": str(dt),
+                              "max_abs_err": err, "tol": tol})
     b, s, h, dh = 32, 64, 24, 128
     q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
                .bfloat16() for _ in range(3))
@@ -306,6 +316,18 @@ def check_flash(gen, records):
         max_abs_err=max_err(K.flash_attention(q, k, v, causal=False),
                             attention_ref(q, k, v, False)),
         shape=[b, s, h, dh])
+    # the f32 route (CUDA-core kernel) at the same shape
+    q, k, v = (t.float() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    f32 = dict(
+        shape=[b, s, h, dh], dtype="float32",
+        ms=median_ms(lambda: K.flash_attention(q, k, v, causal=False)),
+        plain_ms=median_ms(lambda: attention_ref(q, k, v, False)),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt)))
+    f32["bound_ms"], f32["bound_by"] = bound_ms(
+        4 * 4 * b * s * h * dh, _flash_flops(b, s, s, h, dh, False),
+        "float32")
     # the hybrid's shape (causal, Dh 80), reported beside the record
     b, s, h, dh = 32, 64, 32, 80
     q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
@@ -320,7 +342,8 @@ def check_flash(gen, records):
     hybrid["bound_ms"], hybrid["bound_by"] = bound_ms(
         2 * 4 * b * s * h * dh, _flash_flops(b, s, s, h, dh, True),
         "bfloat16")
-    emit("kernels/flash_attention", cases=cases, hybrid_shape=hybrid)
+    emit("kernels/flash_attention", cases=cases, f32_route=f32,
+         hybrid_shape=hybrid)
 
 
 def _ssd_operands(g, h, lc, n, hd, gen):
@@ -358,17 +381,23 @@ def check_ssd(gen, records):
     from repro_torch.kernels.ssd_scan import kernel as K
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_batched_ref
     cases = []
-    for shape, kind in (((2, 2, 16, 8, 8), "sweep"),
-                        ((1, 4, 32, 16, 16), "sweep"),
-                        ((3, 1, 64, 32, 8), "sweep"),
-                        ((32, 80, 64, 64, 64), "serving"),
-                        ((4, 80, 256, 64, 64), "full chunk"),
-                        ((3, 4, 100, 16, 16), "tail")):
+    shapes = [((2, 2, 16, 8, 8), "sweep"),
+              ((1, 4, 32, 16, 16), "sweep"),
+              ((3, 1, 64, 32, 8), "sweep"),
+              ((32, 80, 64, 64, 64), "serving"),
+              ((4, 80, 256, 64, 64), "full chunk"),
+              ((3, 4, 100, 16, 16), "tail")]
+    # head groups down to one head (H = 1), a group the launcher's pick
+    # need not divide (H = 3), and Lc from one row to a full chunk
+    shapes += [((3 if h < 80 else 4, h, lc, 64, 64), "heads/rows")
+               for h in (1, 3, 80) for lc in (1, 64, 100, 256)]
+    for shape, kind in shapes:
         ops = _ssd_operands(*shape, gen)
         out = K.ssd_chunk(*ops)
         ref = ssd_chunk_batched_ref(*ops)
         torch.cuda.synchronize()
-        case = {"shape": list(shape), "kind": kind}
+        case = {"shape": list(shape), "kind": kind,
+                "bitwise": all(torch.equal(o, r) for o, r in zip(out, ref))}
         for name, o, r in zip(("y", "s"), out, ref):
             scale = float(r.abs().max())
             tol = 1e-4 if kind == "sweep" else max(1e-4, 1e-5 * scale)
@@ -652,7 +681,7 @@ def phase_serve(cfg, params, phase="serve"):
                          s_per_round=wall / rounds, launches=c2,
                          rounds_used=[o.rounds_used for _, o in done2])
     emit(phase, arch=cfg.name, layers=cfg.num_layers, **out)
-    profile_rounds(drift, tgrid, n, k, s, phase + "/profile")
+    profile_rounds(drift, tgrid, n, k, s, phase + "/profile", per_call)
     if cfg.family == "dense":
         profile_static(drift, tgrid, n, k, s)
     return {name: c1[name] + c2[name] for name in c1}
@@ -661,7 +690,7 @@ def phase_serve(cfg, params, phase="serve"):
 # kernel-name substrings of the port's kernels in profiler keys
 PORT_KERNEL_TAGS = ("step_rectify_kernel", "step_rectify_accept_kernel",
                     "row_sum", "rmsnorm_kernel", "flash_fwd_kernel",
-                    "ssd_chunk_kernel")
+                    "flash_fwd_mma_kernel", "ssd_chunk_kernel")
 
 
 def _device_events(prof):
@@ -673,23 +702,46 @@ def _device_events(prof):
             and not e.key.startswith("dispatch/")]
 
 
+# the kernel behind each wrapper on the bf16 serving paths
+SERVE_TAGS = {"rmsnorm": "rmsnorm_kernel",
+              "flash_attention": "flash_fwd_mma_kernel",
+              "ssd_chunk": "ssd_chunk_kernel"}
+
+
 def _port_kernels(events, rounds):
-    ours = {}
+    """Launches per round and device ms per launch of each tag, summed
+    over the profiler keys (template instances) that carry it."""
+    sums = {}
     for e in events:
         for tag in PORT_KERNEL_TAGS:
             if tag in e.key:
-                ours[tag] = {"launches_per_round": e.count / rounds,
-                             "device_ms_per_launch":
-                                 e.self_device_time_total / 1e3 / e.count}
-    return ours
+                n, us = sums.get(tag, (0, 0.0))
+                sums[tag] = (n + e.count, us + e.self_device_time_total)
+    return {tag: {"launches_per_round": n / rounds,
+                  "device_ms_per_launch": us / 1e3 / n}
+            for tag, (n, us) in sums.items()}
 
 
-def profile_rounds(drift, tgrid, n, k, s, phase, rounds: int = 3):
+def _check_profiled_launches(ours, per_round):
+    """Each backbone kernel shows under its own name with the launches the
+    counters predict: a kernel renamed without PORT_KERNEL_TAGS would
+    otherwise drop out of the profile unnoticed."""
+    for name, count in per_round.items():
+        got = ours.get(SERVE_TAGS[name], {}).get("launches_per_round")
+        if count and got != count:
+            raise AssertionError(f"profile: {SERVE_TAGS[name]} launched "
+                                 f"{got} times a round, want {count}")
+
+
+def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
+                   rounds: int = 3):
     """Where a serving round's time goes, on a full grid after one warm
     step (rtol 0: no lane drains), ``rounds`` steps timed without the
     profiler (wall per round),
-    then ``rounds`` steps under ``torch.profiler`` (device time by kernel).
-    The idle share is 1 - device time / unprofiled wall time."""
+    then ``rounds`` steps under ``torch.profiler`` (device time by kernel;
+    each backbone kernel's launches per round must equal ``per_call``, one
+    drift call a round). The idle share is 1 - device time / unprofiled
+    wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ContinuousEngine, Request
@@ -713,13 +765,15 @@ def profile_rounds(drift, tgrid, n, k, s, phase, rounds: int = 3):
     events = _device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / rounds
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    ours = _port_kernels(events, rounds)
     emit(phase, rounds=rounds, wall_ms_per_round=wall * 1e3,
          device_ms_per_round=busy,
          device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
-         port_kernels=_port_kernels(events, rounds),
+         port_kernels=ours,
          top=[{"name": e.key[:80], "calls_per_round": e.count / rounds,
                "ms_per_round": e.self_device_time_total / 1e3 / rounds}
               for e in top])
+    _check_profiled_launches(ours, per_call)
 
 
 def profile_static(drift, tgrid, n, k, s):

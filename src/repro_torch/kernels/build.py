@@ -133,3 +133,11 @@ def stream_handle(device) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def operand(t):
+    """``t`` contiguous and 16-byte aligned, as the kernels' 16-byte
+    ``cp.async`` loads need it (a contiguous view at an odd offset is
+    copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,17 +1,20 @@
-"""ctypes binding of the flash-attention forward CUDA kernel
+"""ctypes binding of the flash-attention forward CUDA kernels
 (``csrc/flash_attention.cu``).
 
 Replaces the Pallas TPU kernel ``flash_attention``
 (``src/repro/kernels/flash_attention/kernel.py``): online softmax over KV
-tiles, q pre-scaled by ``1/sqrt(Dh)``, f32 m/l/acc, optional causal tile
-skip, GQA head ``h -> h // (H/KV)``. The card's bound at the serving shape
-is bytes (q/k/v/o once), but this first kernel runs the two products as
-f32 FMAs on the CUDA cores, which bound it in practice; tensor-core
-products are later work. Sq/Sk tails are masked in the kernel. Head dims
-16, 32, 64, 80 and 128 are compiled (80: ``zamba2-2.7b``'s shared block;
-16: its reduced config). CUDA tensors only; ``ops.py`` picks the plain
-version for CPU tensors. Launches are counted in
-``flash_attention.launches``.
+tiles, scale ``1/sqrt(Dh)``, f32 m/l/acc, optional causal tile skip, GQA
+head ``h -> h // (H/KV)``. The dtype picks one of two kernels and nothing
+else does. bf16 runs on the tensor cores (``mma.sync`` bf16 products with
+f32 sums, the scale applied to S in f32, P rounded to bf16 before PV,
+K/V tiles loaded by ``cp.async`` into two buffers); at the serving shapes
+its bound is bytes (q/k/v/o once), which its overlapped loads chase. f32
+keeps the CUDA-core kernel (f32 FMAs; a bf16 or TF32 product cannot hold
+the 2e-5 contract), bound by its shared-memory operand traffic. Sq/Sk
+tails are masked in the kernels. Head dims 16, 32, 64, 80 and 128 are
+compiled (80: ``zamba2-2.7b``'s shared block; 16: its reduced config).
+CUDA tensors only; ``ops.py`` picks the plain version for CPU tensors.
+Launches are counted in ``flash_attention.launches``.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ def flash_attention(q, k, v, causal: bool = True,
         raise ValueError(f"flash kernel: head_dim {dh} not in {HEAD_DIMS} or "
                          f"{h} heads not a multiple of {kvh} KV heads")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    qc, kc, vc = (build.operand(t) for t in (q, k, v))
     out = torch.empty_like(qc)
     lib = _lib()
     err = lib.flash_attention_fwd(

@@ -5,13 +5,18 @@ Replaces the Pallas TPU kernel ``ssd_chunk``
 (batch·chunks, heads) grid computes every chunk's masked decay-attention
 block ``y = ((C·Bᵀ) ∘ M)·xdt`` and chunk-local state ``s = (xdt·w)ᵀ·B``.
 Inputs and outputs are f32 (the model casts before the call); the products
-are f32 FMAs on the CUDA cores in fixed order. The card's bound at the
-serving shape is ~0.04 ms either way (bytes and f32 operations); this first
-kernel is held back by the shared-memory traffic of its FMAs. C and B are
-per g and shared by the H heads (never expanded). N and hd must each be
-one of ``DIMS``; any Lc works (the tail is masked in the kernel). CUDA
-tensors only; ``ops.py`` picks the plain version for CPU tensors. Launches
-are counted in ``ssd_chunk.launches``.
+are f32 FMAs on the CUDA cores, each output one fixed-order sum. The
+card's bound at the serving shape is ~0.04 ms either way (bytes and f32
+operations), so the kernel computes C·Bᵀ once per block of up to 8 heads
+of a g (never per head, never expanded in device memory), reads its
+operands as float4 from 4×4 micro-tiles and prefetches the next head's
+operands while the current one computes. In practice its products are
+held by shared-memory bandwidth and the rest of each head step by latency,
+and the two add up (``benchmarks/torch_kernel_ablation.py``). N and hd
+must each be one of
+``DIMS``; Lc may be anything up to ``MAX_LC`` (the tail is masked in the
+kernel). CUDA tensors only; ``ops.py`` picks the plain version for CPU
+tensors. Launches are counted in ``ssd_chunk.launches``.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import torch
 from repro_torch.kernels import build
 
 DIMS = (8, 16, 32, 64)
-MAX_LC = 16384  # cum is held whole in shared memory
+# B and one l-tile's C·Bᵀ tiles are held whole in shared memory; 256 is the
+# largest ``ssm_chunk`` of any config
+MAX_LC = 256
 
 
 def _lib():
@@ -59,7 +66,7 @@ def ssd_chunk(c_mat, b_mat, xdt, cum):
     if n not in DIMS or hd not in DIMS or not 1 <= lc <= MAX_LC:
         raise ValueError(f"ssd_chunk kernel: N={n} and hd={hd} must be in "
                          f"{DIMS} and Lc={lc} in [1, {MAX_LC}]")
-    cc, bc, xc, uc = (t.contiguous() for t in ts)
+    cc, bc, xc, uc = (build.operand(t) for t in ts)
     y = torch.empty_like(xc)
     s = torch.empty((g, h, hd, n), dtype=torch.float32, device=xdt.device)
     lib = _lib()

@@ -14,6 +14,7 @@ its ulps (the sweep of ``tests/test_kernels.py`` holds at 1e-4 itself, in
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rectify.ref import (fused_step_rectify_accept_ref,
                                              fused_step_rectify_ref)
@@ -88,8 +89,46 @@ def test_flash_kernel_head_dims(cuda, dh, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal", [
+    (2, 128, 128, 8, 8, False),
+    (2, 128, 128, 8, 8, True),    # two KV tiles: the second K/V buffer
+    (2, 200, 200, 8, 2, True),    # GQA with tails
+    (3, 77, 77, 4, 4, True),      # a 77-row tail
+    (3, 77, 77, 4, 4, False),
+    (2, 64, 333, 8, 1, False),    # MQA, cross, six KV tiles
+])
+def test_flash_bf16_tensor_core_route(cuda, dh, b, sq, sk, h, kv, causal):
+    """The bf16 route (``flash_fwd_mma_kernel``) at every compiled head
+    dim."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    q = torch.randn(b, sq, h, dh, generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn(b, sk, kv, dh, generator=cuda, device="cuda")
+            .bfloat16() for _ in range(2))
+    torch.testing.assert_close(flash_attention(q, k, v, causal).float(),
+                               attention_ref(q, k, v, causal).float(),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,dh,causal", [(32, 64, 24, 128, False),
+                                             (32, 64, 32, 80, True)])
+def test_flash_bf16_serving_shapes(cuda, b, s, h, dh, causal):
+    """The DiT's attention and the hybrid's shared block as they serve."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    q, k, v = (torch.randn(b, s, h, dh, generator=cuda, device="cuda")
+               .bfloat16() for _ in range(3))
+    torch.testing.assert_close(flash_attention(q, k, v, causal).float(),
+                               attention_ref(q, k, v, causal).float(),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("g,h,lc,n,hd", [(32, 80, 64, 64, 64),  # serving
-                                         (3, 4, 100, 16, 16)])  # a tail
+                                         (3, 4, 100, 16, 16),   # a tail
+                                         (3, 3, 64, 64, 64),    # H = 3
+                                         (2, 80, 256, 64, 64),  # a full chunk
+                                         (4, 1, 1, 8, 8)])      # one row
 def test_ssd_chunk_kernel(cuda, g, h, lc, n, hd):
     from repro_torch.kernels.ssd_scan.kernel import ssd_chunk
     c, b = (torch.randn(g, lc, n, generator=cuda, device="cuda")
