@@ -1,7 +1,7 @@
 """Ablations of the port's redesigned CUDA kernels on one card: what bounds
 them.
 
-    python3 benchmarks/torch_kernel_ablation.py
+    python3 benchmarks/torch_kernel_ablation.py [ssd,flash,rmsnorm,accept,host]
 
 ``ssd_chunk``: copies of ``src/repro_torch/csrc/ssd_scan.cu`` with one part
 of the kernel cut out by a text substitution (each cut is asserted to
@@ -15,9 +15,18 @@ take for the same output writes and input reads, a floor the card reaches
 for this traffic. ``flash_attention``: both routes (bf16 tensor cores, f32
 CUDA cores) at the two serving shapes, beside SDPA.
 
-Times are device times: CUDA events around back-to-back launches through
-ctypes (the loop issues faster than the kernels run), median of 7 runs of
-50. One JSON line per measurement; the card's name and power limit first.
+``rmsnorm`` and ``fused_step_rectify_accept``: the launchers take any
+valid launch plan, so the alternatives to the wrappers' own plans are
+launched through the C interface and timed by device time (a profiler
+window) at the serving shapes, beside ``F.rms_norm``; every launch is held
+against the plain version. ``host``: what the host spends per call on each
+step of both wrappers and on ``F.rms_norm`` (wall time of 200 calls, the
+device never the slower side).
+
+Times of the ssd and flash sections are device times: CUDA events around
+back-to-back launches through ctypes (the loop issues faster than the
+kernels run), median of 7 runs of 50. One JSON line per measurement; the
+card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -30,6 +39,10 @@ import sys
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src", "repro_torch", "csrc", "ssd_scan.cu")
 OUT = os.path.join(ROOT, "build", "ablation")
+RMSNORM_SRC = os.path.join(ROOT, "src", "repro_torch", "csrc", "rmsnorm.cu")
+# the rows-in-registers kernel without its register cap
+RMSNORM_CUTS = {"no register cap": [("constexpr int kMinBlocks = 6;",
+                                     "constexpr int kMinBlocks = 1;")]}
 
 # name -> [(text in ssd_scan.cu, replacement), ...]. A store is cut with a
 # guard that is false at run time (lc < 0), so that the compiler cannot
@@ -47,30 +60,29 @@ CUTS = {
 }
 
 
-def _variants():
-    src = open(SRC).read()
-    out = {"kernel": src}
-    for name, subs in CUTS.items():
-        text = src
+def _variants(src=SRC, cuts=None):
+    src_text = open(src).read()
+    out = {"kernel": src_text}
+    for name, subs in (CUTS if cuts is None else cuts).items():
+        text = src_text
         for old, new in subs:
             if text.count(old) != 1:
                 raise SystemExit(f"ablation '{name}': {old!r} does not occur "
-                                 f"exactly once in {SRC}")
+                                 f"exactly once in {src}")
             text = text.replace(old, new)
         out[name] = text
     return out
 
 
-def _build(variants):
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+def _build(variants, stem="ssd"):
     from repro_torch.kernels.build import NVCC_FLAGS, find_nvcc
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for i, (name, text) in enumerate(variants.items()):
-        cu = os.path.join(OUT, f"ssd_{i}.cu")
+        cu = os.path.join(OUT, f"{stem}_{i}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        so = os.path.join(OUT, f"ssd_{i}.so")
+        so = os.path.join(OUT, f"{stem}_{i}.so")
         procs[name] = (so, subprocess.Popen(
             [find_nvcc(), *NVCC_FLAGS, "-o", so, cu], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
@@ -172,6 +184,209 @@ def flash_routes(gen, stream):
                               "max_abs_err": err}), flush=True)
 
 
+def profiled_ms(fn, calls: int = 50):
+    """Device time per call of ``fn`` (all kernels it launches) from a
+    ``torch.profiler`` window after a warm-up window, and the kernel
+    launches per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for step in range(2):  # the first window warms the tracer up
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            if step == 0:
+                prof.step()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / calls,
+            sum(e.count for e in ev) / calls)
+
+
+def host_us(fn, n: int = 200, reps: int = 7) -> float:
+    """Host wall time per call, median of ``reps`` runs of ``n`` calls."""
+    import time
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+def rmsnorm_plans(gen):
+    """Every launch plan of the rows-in-registers kernel with 16-byte loads
+    (threads a row x rows a block), with and without its register cap, and
+    the two sweeps, at the served widths, beside ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm import kernel as K
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    fns = {}
+    for name, so in _build(_variants(RMSNORM_SRC, RMSNORM_CUTS),
+                           "rmsnorm").items():
+        fn = ctypes.CDLL(so).rmsnorm_fwd
+        fn.argtypes = K._fwd().argtypes
+        fns[name] = fn
+    stream = build.stream_handle(0)
+    for rows, d in ((2048, 3072), (2048, 2560), (2048, 5120)):
+        x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        ref = rmsnorm_ref(x, w)
+        y = torch.empty_like(x)
+        plans = {"two sweeps": K.Plan(K.TWO_SWEEPS, 8, 256, 0, 1)}
+        for tpr in range(32, 257, 32):
+            nv = -(-(d // 8) // tpr)
+            for g in (1, 2, 4, 8):
+                if nv <= K.MAX_VECS and tpr * g <= K.BLOCK_THREADS:
+                    plans[f"rows {tpr}x{g}"] = K.Plan(K.ROWS_IN_REGISTERS, 8,
+                                                      tpr, nv, g)
+        chosen = K.plan(d, torch.bfloat16, True)
+        for lib, fn in fns.items():
+            for name, p in plans.items():
+                if lib != "kernel" and p.variant != K.ROWS_IN_REGISTERS:
+                    continue
+                args = [x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
+                        1e-6, K.pack_config(1, 1, p), stream]
+                y.zero_()
+                if fn(*args):
+                    raise SystemExit(f"rmsnorm plan {name} failed to launch")
+                ms, _ = profiled_ms(lambda: fn(*args))
+                print(json.dumps({
+                    "kernel": "rmsnorm", "build": lib, "shape": [rows, d],
+                    "plan": name, "chosen": lib == "kernel" and p == chosen,
+                    "device_ms": ms,
+                    "max_abs_err": float((y.float() - ref.float()).abs()
+                                         .max())}), flush=True)
+        ms, n = profiled_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
+        print(json.dumps({"kernel": "rmsnorm", "shape": [rows, d],
+                          "plan": "F.rms_norm", "device_ms": ms,
+                          "kernels_per_call": n}), flush=True)
+
+
+def _accept_args(lat, prev, dt, ds, fire, out, sums, plan, stream):
+    rows, m = lat[0].shape
+    cluster, span, threads, vec = plan
+    return [t.data_ptr() for t in (*lat, prev, dt, ds, fire, out, sums)] + [
+        rows, m, rows // prev.shape[0], span,
+        cluster | threads << 4 | vec << 16, stream]
+
+
+def accept_plans(gen):
+    """The accept kernel at the serving shape ([32, 1024], prev [4, 1024])
+    through every cluster size, load width and block size."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rectify import kernel as K
+    from repro_torch.kernels.rectify.ref import fused_step_rectify_accept_ref
+    fn = K._accept_fn()
+    stream = build.stream_handle(0)
+    rows, m, p = 32, 1024, 4
+    lat = [torch.randn(rows, m, generator=gen, device="cuda")
+           for _ in range(6)]
+    prev = torch.randn(p, m, generator=gen, device="cuda")
+    dt, ds = (torch.rand(rows, generator=gen, device="cuda") for _ in "ab")
+    fire = torch.rand(rows, generator=gen, device="cuda") < 0.5
+    ro, re, rs = fused_step_rectify_accept_ref(*lat, prev, dt, ds, fire)
+    out = torch.empty_like(ro)
+    sums = torch.empty(2, rows, device="cuda")
+    chosen = tuple(K.accept_plan(rows, m, True))
+    for cluster in (1, 2, 4, 8):
+        for vec in (4, 1):
+            span = -(-m // (cluster * vec)) * vec
+            for threads in (32, 64, 128, 256):
+                if threads * vec > span and threads > 32:
+                    continue
+                plan = (cluster, span, threads, vec)
+                args = _accept_args(lat, prev, dt, ds, fire, out, sums, plan,
+                                    stream)
+                if fn(*args):
+                    raise SystemExit(f"accept plan {plan} failed to launch")
+                ms, _ = profiled_ms(lambda: fn(*args))
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    "kernel": "fused_step_rectify_accept",
+                    "shape": [rows, m, p], "plan": plan,
+                    "chosen": plan == chosen, "device_ms": ms,
+                    "out_bitwise": bool(torch.equal(out, ro)),
+                    "sum_rel_err": float(((sums[0] - re).abs() / re).max())}),
+                    flush=True)
+
+
+def host_path(gen):
+    """Host time per call of each step of the rmsnorm and accept wrappers,
+    and of the whole wrappers beside ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rectify import kernel as R
+    from repro_torch.kernels.rmsnorm import kernel as K
+    dev = torch.device("cuda", 0)
+    rows, d = 2048, 3072
+    x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+    w = torch.ones(d, device="cuda").bfloat16()
+    y = torch.empty_like(x)
+    cfg = K.launch_config(d, torch.bfloat16, torch.bfloat16, True)
+    args = [x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, 1e-6, cfg,
+            build.stream_handle(0)]
+    bad = list(args)
+    bad[6] = cfg | 3 << 2  # an invalid variant: returns before any launch
+    lat = [torch.randn(32, 1024, generator=gen, device="cuda")
+           for _ in range(6)]
+    prev = torch.randn(4, 1024, generator=gen, device="cuda")
+    sc = torch.rand(32, generator=gen, device="cuda")
+    fire = sc < 0.5
+    out, sums = torch.empty_like(lat[0]), torch.empty(2, 32, device="cuda")
+    plan = R.accept_plan(32, 1024, True)
+    aargs = _accept_args(lat, prev, sc, sc, fire, out, sums, plan,
+                         build.stream_handle(0))
+    abad = list(aargs)
+    abad[-2] = 0  # cluster 0: returns before any launch
+    steps = {
+        "F.rms_norm": lambda: F.rms_norm(x, (d,), w, 1e-6),
+        "rmsnorm wrapper": lambda: K.rmsnorm(x, w),
+        "rmsnorm C call (launch)": lambda: K._fwd()(*args),
+        "rmsnorm C call (no launch, 8 arguments)": lambda: K._fwd()(*bad),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "x.new_empty": lambda: x.new_empty(x.shape),
+        "torch.empty(shape, dtype, device)": lambda: torch.empty(
+            x.shape, dtype=x.dtype, device=x.device),
+        "build.stream_handle": lambda: build.stream_handle(0),
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "launch_config (cached)": lambda: K.launch_config(
+            d, torch.bfloat16, torch.bfloat16, True),
+        "checks (device, dtype, shape, contiguity)": lambda: (
+            x.is_cuda and w.is_cuda, w.get_device() != x.get_device(),
+            x.dtype in K.DTYPE_CODES, w.dtype in K.DTYPE_CODES,
+            w.shape != (d,), x.is_contiguous(), w.is_contiguous()),
+        "data_ptr x3": lambda: (x.data_ptr(), w.data_ptr(), y.data_ptr()),
+        "accept wrapper": lambda: R.fused_step_rectify_accept(
+            *lat, prev, sc, sc, fire),
+        "accept checks": lambda: R._check_operands(lat, (sc, sc), fire),
+        "accept C call (launch)": lambda: R._accept_fn()(*aargs),
+        "accept C call (no launch, 18 arguments)":
+            lambda: R._accept_fn()(*abad),
+        "accept_plan (cached)": lambda: R.accept_plan(32, 1024, True),
+        "data_ptr x11": lambda: [t.data_ptr() for t in (*lat, prev, sc, sc,
+                                                        fire)],
+        "new_empty (2, rows)": lambda: lat[0].new_empty((2, 32)),
+        "sums.unbind()": lambda: sums.unbind(),
+        "sums[0], sums[1]": lambda: (sums[0], sums[1]),
+    }
+    for name, fn in steps.items():
+        print(json.dumps({"host": name, "us_per_call": host_us(fn)}),
+              flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -180,11 +395,21 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs = _build(_variants())
+    sys.path.insert(0, os.path.join(ROOT, "src"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    ablate_ssd(libs, gen, stream)
-    flash_routes(gen, stream)
+    sections = sys.argv[1].split(",") if len(sys.argv) > 1 else \
+        ["ssd", "flash", "rmsnorm", "accept", "host"]
+    if "ssd" in sections:
+        ablate_ssd(_build(_variants()), gen, stream)
+    if "flash" in sections:
+        flash_routes(gen, stream)
+    if "rmsnorm" in sections:
+        rmsnorm_plans(gen)
+    if "accept" in sections:
+        accept_plans(gen)
+    if "host" in sections:
+        host_path(gen)
     return 0
 
 

@@ -16,7 +16,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               published peaks); flash over every case at every compiled
               head dim through both routes (bf16: the tensor-core kernel,
               f32: the CUDA-core kernel), ``ssd_chunk`` also at H 1, 3
-              and 80 with Lc 1, 64, 100 and 256;
+              and 80 with Lc 1, 64, 100 and 256; rmsnorm through both
+              variants and at the three served widths beside
+              ``F.rms_norm``, as wrapper time and as device time per call
+              (profiler); the accept kernel's sums bitwise equal between
+              launches and to its summation order emulated in plain torch,
+              and exactly one device kernel a call;
 4. parity   — the serving path on the card against the same path on the
               CPU on a closed-form drift (scheduling exact, samples 1e-4);
 5. drift    — ``chords-dit-xl`` at full width and depth, random weights
@@ -30,7 +35,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               a full grid under ``torch.profiler`` say where a round's
               device time goes and how long the device sits idle (each
               backbone kernel must show under its name with the launches
-              the counters predict), and one
+              the counters predict, the accept kernel once a round, and the
+              round body's accept call must launch exactly one device
+              kernel), and one
               profiled ``ChordsEngine`` batch gives the device time of its
               rectify kernel;
 7. ssd      — one ``zamba2-2.7b`` Mamba2 layer at full width (d_model
@@ -92,6 +99,28 @@ def median_ms(fn, iters: int = 10, reps: int = 10, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, calls: int = 20):
+    """Device time per call of ``fn`` from a short ``torch.profiler``
+    window over ``calls`` calls (after a first window of as many calls that
+    warms the tracer up: a launch at the very start of a window can go
+    unrecorded), with the kernels it launched: (ms per call, kernel launches
+    per call, kernel names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for step in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            if step == 0:
+                prof.step()
+    events = _device_events(prof)
+    return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
+            sum(e.count for e in events) / calls,
+            sorted({e.key[:60] for e in events}))
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -159,10 +188,16 @@ def _rectify_operands(rows, m, p, gen):
 
 
 def check_rectify(gen, records):
+    """Both rectify kernels against their plain versions: ``out`` bitwise;
+    the accept sums within rtol 1e-5 of the plain version, bitwise equal
+    between two launches and to the kernel's summation order emulated in
+    plain torch (``accept_sums_in_kernel_order``); timed at the serving
+    shape, where the accept wrapper must launch exactly one kernel."""
     import torch
     from repro_torch.kernels.rectify import kernel as K
     from repro_torch.kernels.rectify.ref import (
-        fused_step_rectify_accept_ref, fused_step_rectify_ref)
+        accept_sums_in_kernel_order, fused_step_rectify_accept_ref,
+        fused_step_rectify_ref)
     results = []
     # (rows, M, prev rows): the serving grid S*K=32 rows of M = 1*64*16,
     # prev shared by each slot's 8 cores; a per-row prev; a long tail
@@ -174,16 +209,25 @@ def check_rectify(gen, records):
             raise AssertionError(f"rectify [{rows},{m}] not bitwise: max "
                                  f"err {max_err(out, ref)}")
         out2, e2, o2 = K.fused_step_rectify_accept(*lat, prev, dt, ds, fire)
+        _, e3, o3 = K.fused_step_rectify_accept(*lat, prev, dt, ds, fire)
         ref2, re2, ro2 = fused_step_rectify_accept_ref(*lat, prev, dt, ds,
                                                        fire)
+        plan = K.accept_plan(rows, m, True)
+        ke, ko = accept_sums_in_kernel_order(ref2, prev, *plan)
         torch.cuda.synchronize()
         if not torch.equal(out2, ref2):
             raise AssertionError(f"rectify accept [{rows},{m}] out not "
                                  f"bitwise: {max_err(out2, ref2)}")
         for a, b in ((e2, re2), (o2, ro2)):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+        if not (torch.equal(e2, e3) and torch.equal(o2, o3)):
+            raise AssertionError(f"rectify accept [{rows},{m}]: sums differ "
+                                 f"between two launches")
         results.append({"rows": rows, "m": m, "prev_rows": p,
-                        "out_bitwise": True,
+                        "plan": plan._asdict(), "out_bitwise": True,
+                        "sums_repeat_bitwise": True,
+                        "sums_kernel_order_bitwise": bool(
+                            torch.equal(e2, ke) and torch.equal(o2, ko)),
                         "sum_rel_err": max(
                             float(((e2 - re2).abs() / re2.abs()).max()),
                             float(((o2 - ro2).abs() / ro2.abs()).max()))})
@@ -197,9 +241,12 @@ def check_rectify(gen, records):
                   fused_step_rectify_ref(*lat, dt, ds, fire))
     nbytes = 4 * (7 * rows * m + 3 * rows)
     bms, by = bound_ms(nbytes, 7 * rows * m, "float32")
+    dev_ms, per_call, names = device_ms(
+        lambda: K.fused_step_rectify(*lat, dt, ds, fire))
     records["fused_step_rectify"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        max_abs_err=err, shape=[rows, m])
+        max_abs_err=err, shape=[rows, m], device_ms=dev_ms,
+        kernels_per_call=per_call, kernel_names=names)
     ms = median_ms(lambda: K.fused_step_rectify_accept(*lat, prev, dt, ds,
                                                        fire))
     plain = median_ms(lambda: fused_step_rectify_accept_ref(
@@ -209,51 +256,87 @@ def check_rectify(gen, records):
     err = max(max_err(x, y) for x, y in zip(a, b))
     nbytes = 4 * (7 * rows * m + p * m + 5 * rows)
     bms, by = bound_ms(nbytes, 12 * rows * m, "float32")
+    dev_ms, per_call, names = device_ms(
+        lambda: K.fused_step_rectify_accept(*lat, prev, dt, ds, fire))
+    if per_call != 1 or not all("step_rectify_accept_kernel" in n
+                                for n in names):
+        raise AssertionError(f"rectify accept: {per_call} kernels a call "
+                             f"({names}), want one step_rectify_accept")
     records["fused_step_rectify_accept"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        max_abs_err=err, shape=[rows, m, p])
-    emit("kernels/rectify", cases=results)
+        max_abs_err=err, shape=[rows, m, p], device_ms=dev_ms,
+        kernels_per_call=per_call, plan=K.accept_plan(rows, m, True)._asdict())
+    emit("kernels/rectify", cases=results,
+         timings={k: records[k] for k in ("fused_step_rectify",
+                                          "fused_step_rectify_accept")})
+
+
+# rmsnorm at the served widths: the DiT's 3072, the hybrid's 2560 and the
+# 5120 of its shared block's ln_in (concat(h, h0)); 2048 rows = S*K*64
+RMSNORM_SERVING = ((2048, 3072), (2048, 2560), (2048, 5120))
 
 
 def check_rmsnorm(gen, records):
+    """rmsnorm against its plain version (1e-5 f32, 5e-2 bf16) through both
+    variants (rows in registers; two sweeps for 5120 f32), 16-byte vectors
+    and one element at a time (an odd width, an unaligned view); then, at
+    each served width, the wrapper timed as ``F.rms_norm`` is (``median_ms``,
+    host cost included) and both by device time per call (profiler)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel as K
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    bf, f32 = torch.bfloat16, torch.float32
     cases = []
-    for rows, d, dt, wdt, tol in ((2048, 3072, torch.bfloat16,
-                                   torch.bfloat16, 5e-2),
-                                  (2048, 3072, torch.bfloat16, torch.float32,
-                                   5e-2),
-                                  (1000, 3072, torch.float32, torch.float32,
-                                   1e-5),
-                                  (37, 128, torch.float32, torch.float32,
-                                   1e-5),
-                                  (333, 4096, torch.bfloat16, torch.bfloat16,
-                                   5e-2)):
-        x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+    for rows, d, dt, wdt, offset in ((2048, 3072, bf, bf, 0),
+                                     (2048, 3072, bf, f32, 0),
+                                     (2048, 2560, bf, bf, 0),
+                                     (2048, 5120, bf, bf, 0),
+                                     (1000, 3072, f32, f32, 0),
+                                     (1000, 5120, f32, f32, 0),
+                                     (37, 128, f32, f32, 0),
+                                     (333, 4096, bf, bf, 0),
+                                     (333, 1001, bf, bf, 0),
+                                     (333, 2560, bf, bf, 1),
+                                     (333, 3072, f32, f32, 1)):
+        tol = 1e-5 if dt == f32 else 5e-2
+        flat = torch.randn(rows * d + offset, generator=gen, device="cuda")
+        x = flat.to(dt)[offset:].view(rows, d)   # offset 1: not 16-aligned
         w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")) \
             .to(wdt)
         out, ref = K.rmsnorm(x, w), rmsnorm_ref(x, w)
         err = max_err(out, ref)
         if not err <= tol:
-            raise AssertionError(f"rmsnorm {rows}x{d} {dt}: err {err} > "
-                                 f"{tol}")
+            raise AssertionError(f"rmsnorm {rows}x{d} {dt} offset {offset}: "
+                                 f"err {err} > {tol}")
+        plan = K.plan(d, dt, (x.data_ptr() | w.data_ptr()) % 16 == 0)
         cases.append({"rows": rows, "d": d, "dtype": str(dt),
-                      "w_dtype": str(wdt), "max_abs_err": err, "tol": tol})
-    rows, d = 2048, 3072
-    x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
-    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
-    ms = median_ms(lambda: K.rmsnorm(x, w))
-    plain = median_ms(lambda: rmsnorm_ref(x, w))
-    lib = median_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
-    bms, by = bound_ms(2 * (2 * rows * d + d), 4 * rows * d, "bfloat16")
-    records["rmsnorm"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
-                              bound_by=by, library_ms=lib,
-                              max_abs_err=max_err(K.rmsnorm(x, w),
-                                                  rmsnorm_ref(x, w)),
-                              shape=[rows, d])
+                      "w_dtype": str(wdt), "offset": offset,
+                      "plan": plan._asdict(), "max_abs_err": err, "tol": tol})
     emit("kernels/rmsnorm", cases=cases)
+    for rows, d in RMSNORM_SERVING:
+        x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+        w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")) \
+            .bfloat16()
+        ms = median_ms(lambda: K.rmsnorm(x, w))
+        lib = median_ms(lambda: F.rms_norm(x, (d,), w, 1e-6))
+        dev, per_call, _ = device_ms(lambda: K.rmsnorm(x, w))
+        lib_dev, lib_per_call, lib_names = device_ms(
+            lambda: F.rms_norm(x, (d,), w, 1e-6))
+        bms, by = bound_ms(2 * (2 * rows * d + d), 4 * rows * d, "bfloat16")
+        rec = dict(shape=[rows, d], ms=ms, library_ms=lib, device_ms=dev,
+                   library_device_ms=lib_dev,
+                   library_kernels_per_call=lib_per_call,
+                   library_kernels=lib_names, kernels_per_call=per_call,
+                   bound_ms=bms, bound_by=by, bound_share=bms / dev,
+                   wrapper_within_library=ms <= lib,
+                   plan=K.plan(d, torch.bfloat16, True)._asdict())
+        if (rows, d) == RMSNORM_SERVING[0]:
+            rec.update(plain_ms=median_ms(lambda: rmsnorm_ref(x, w)),
+                       max_abs_err=max_err(K.rmsnorm(x, w),
+                                           rmsnorm_ref(x, w)))
+            records["rmsnorm"] = rec
+        emit("kernels/rmsnorm-timing", **rec)
 
 
 def _flash_flops(b, sq, sk, h, dh, causal):
@@ -689,21 +772,23 @@ def phase_serve(cfg, params, phase="serve"):
 
 # kernel-name substrings of the port's kernels in profiler keys
 PORT_KERNEL_TAGS = ("step_rectify_kernel", "step_rectify_accept_kernel",
-                    "row_sum", "rmsnorm_kernel", "flash_fwd_kernel",
-                    "flash_fwd_mma_kernel", "ssd_chunk_kernel")
+                    "rmsnorm_rows_kernel", "rmsnorm_sweep_kernel",
+                    "flash_fwd_kernel", "flash_fwd_mma_kernel",
+                    "ssd_chunk_kernel")
 
 
 def _device_events(prof):
     import torch
-    # kernels are CUDA-typed events; the engine's "dispatch/round" range
-    # also shows on the device timeline and would count every kernel twice
+    # kernels are CUDA-typed events; the engine's "dispatch/round" range and
+    # the profiler's own "ProfilerStep#" range also show on the device
+    # timeline and would count every kernel twice
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("dispatch/")]
+            and not e.key.startswith(("dispatch/", "ProfilerStep"))]
 
 
 # the kernel behind each wrapper on the bf16 serving paths
-SERVE_TAGS = {"rmsnorm": "rmsnorm_kernel",
+SERVE_TAGS = {"rmsnorm": "rmsnorm_rows_kernel",
               "flash_attention": "flash_fwd_mma_kernel",
               "ssd_chunk": "ssd_chunk_kernel"}
 
@@ -738,12 +823,13 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
     """Where a serving round's time goes, on a full grid after one warm
     step (rtol 0: no lane drains), ``rounds`` steps timed without the
     profiler (wall per round),
-    then ``rounds`` steps under ``torch.profiler`` (device time by kernel;
+    then ``rounds`` steps under ``torch.profiler`` after one warm-up step
+    (device time by kernel;
     each backbone kernel's launches per round must equal ``per_call``, one
     drift call a round). The idle share is 1 - device time / unprofiled
     wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.serve import ContinuousEngine, Request
     engine = ContinuousEngine(drift, (1, 64, 16), n, k, tgrid, num_slots=s,
                               rtol=0.0, use_kernel=True, device="cuda")
@@ -757,8 +843,13 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
             engine.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / rounds
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # one round in a first window warms the tracer up (a launch at the
+        # very start of a window can go unrecorded)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            engine.step()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(rounds):
                 engine.step()
             torch.cuda.synchronize()
@@ -766,14 +857,37 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
     busy = sum(e.self_device_time_total for e in events) / 1e3 / rounds
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     ours = _port_kernels(events, rounds)
+    accept = _accept_path_kernels(s * k, 64 * 16, s)
     emit(phase, rounds=rounds, wall_ms_per_round=wall * 1e3,
          device_ms_per_round=busy,
          device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
-         port_kernels=ours,
+         port_kernels=ours, accept_path=accept,
          top=[{"name": e.key[:80], "calls_per_round": e.count / rounds,
                "ms_per_round": e.self_device_time_total / 1e3 / rounds}
               for e in top])
     _check_profiled_launches(ours, per_call)
+    got = ours.get("step_rectify_accept_kernel", {}).get("launches_per_round")
+    if got != 1:
+        raise AssertionError(f"profile: step_rectify_accept_kernel launched "
+                             f"{got} times a round, want 1")
+
+
+def _accept_path_kernels(rows, m, p):
+    """The round body's accept call (``ops.step_rectify_accept`` with a
+    bool ``fire``, as ``core/chords.py`` makes it) at the round's shape
+    under the profiler: it must launch exactly one device kernel, the
+    accept kernel (no cast of ``fire``, no second pass)."""
+    import torch
+    from repro_torch.kernels.rectify.ops import step_rectify_accept
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lat, prev, dt, ds, fire = _rectify_operands(rows, m, p, gen)
+    ms, per_call, names = device_ms(lambda: step_rectify_accept(
+        *lat, prev, dt, ds, fire, use_kernel=True))
+    if per_call != 1 or not all("step_rectify_accept_kernel" in n
+                                for n in names):
+        raise AssertionError(f"accept path: {per_call} device kernels a "
+                             f"call ({names}), want one accept kernel")
+    return {"kernels_per_call": per_call, "device_ms": ms, "names": names}
 
 
 def profile_static(drift, tgrid, n, k, s):

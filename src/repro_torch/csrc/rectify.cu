@@ -12,24 +12,35 @@
 // output would stop being bitwise equal to PyTorch's separately rounded ops.
 //
 // Bound: bytes. Six (seven with prev) latent reads and one write of 4 bytes
-// per element against ~0.3 flop per byte, so the kernel only has to stream
-// at the card's memory rate: one launch covers the whole grid (blockIdx.y =
-// row, blockIdx.x = tile of the row), each thread walks its tile with
-// coalesced loads.
+// per element against ~0.3 flop per byte, so the kernels only have to stream
+// at the card's memory rate.
 //
-// Accept variant: err_sq[r] = sum((out - prev)^2), out_sq[r] = sum(out*out).
-// Each block reduces its tile (warp shuffles, then shared memory) into a
-// per-(row, tile) partial; a second kernel sums each row's partials in a
-// fixed order. Two passes instead of f32 atomics keep the sums
-// deterministic from run to run.
+// fused_step_rectify: one launch covers the whole grid (blockIdx.y = row,
+// blockIdx.x = tile of the row), each thread walks its tile with coalesced
+// loads.
+//
+// fused_step_rectify_accept adds err_sq[r] = sum((out - prev)^2) and
+// out_sq[r] = sum(out*out). At the serving shape ([32, 1024]) it moves
+// ~1 MB, so it is bound by launch latency more than by bytes, and it is one
+// launch with no scratch in device memory and no atomics: one thread block
+// cluster per row (C <= 8 blocks, C picked so that rows x C fills the SMs),
+// each block streaming its share of the row's columns (float4 loads where
+// the operands allow) and reducing its two partial sums in shared memory;
+// each block writes them into rank 0's shared memory (distributed shared
+// memory), and rank 0 adds the C partials in rank order. Every sum is taken
+// in one fixed order, so the sums are the same from launch to launch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
+constexpr int kMaxCluster = 8;  // the portable cluster size
 
 __device__ __forceinline__ float step_rect(float x, float f, float xu,
                                            float fu, float xs, float fs,
@@ -60,40 +71,84 @@ __global__ void step_rectify_kernel(
   }
 }
 
+// shuffle-down tree: lane 0 ends with ((v0 + v16) + (v8 + v24)) + ..., the
+// order kernels/rectify/ref.py `accept_sums_in_kernel_order` emulates
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
   return v;
 }
 
-__global__ void step_rectify_accept_kernel(
+// Block b (cluster rank) of row r's cluster owns columns [b*span,
+// min(m, (b+1)*span)); thread t takes its VEC-wide pieces t, t + T, ...
+// of them. Each block reduces its partial sums (thread, then warp tree, then
+// the warp partials as one more tree) and writes them into rank 0's shared
+// memory (distributed shared memory); after a cluster barrier rank 0 adds
+// the C block partials in rank order and writes the row's sums. A block
+// may write to another's shared memory only once every block of the
+// cluster has started: the kernel arrives at a first cluster barrier on
+// entry and waits on it just before that write, so the wait overlaps the
+// loads.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) step_rectify_accept_kernel(
     const float* __restrict__ x, const float* __restrict__ f,
     const float* __restrict__ xu, const float* __restrict__ fu,
     const float* __restrict__ xs, const float* __restrict__ fs,
     const float* __restrict__ prev, const float* __restrict__ dt,
     const float* __restrict__ ds, const uint8_t* __restrict__ fire,
-    float* __restrict__ out, float* __restrict__ err_part,
-    float* __restrict__ osq_part, int64_t m, int64_t group) {
+    float* __restrict__ out, float* __restrict__ err_sq,
+    float* __restrict__ out_sq, int64_t m, int64_t group, int64_t span) {
+  cg::cluster_group cluster = cg::this_cluster();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const unsigned rank = cluster.block_rank();
   const int64_t row = blockIdx.y;
   const float d = dt[row], s = ds[row];
   const bool fr = fire[row] != 0;
   const int64_t base = row * m;
   const int64_t pbase = (row / group) * m;  // prev row shared by a slot's cores
-  const int64_t start = (int64_t)blockIdx.x * kTile + threadIdx.x;
+  const int64_t c0 = (int64_t)rank * span;
+  const int64_t c1 = c0 + span < m ? c0 + span : m;
   float err = 0.0f, osq = 0.0f;
+  if (VEC == 4) {
+    for (int64_t c = c0 + 4 * (int64_t)threadIdx.x; c < c1;
+         c += 4 * (int64_t)blockDim.x) {
+      const int64_t j = base + c;
+      const float4 a = *reinterpret_cast<const float4*>(x + j);
+      const float4 b = *reinterpret_cast<const float4*>(f + j);
+      const float4 g = *reinterpret_cast<const float4*>(xu + j);
+      const float4 h = *reinterpret_cast<const float4*>(fu + j);
+      const float4 p = *reinterpret_cast<const float4*>(xs + j);
+      const float4 q = *reinterpret_cast<const float4*>(fs + j);
+      const float4 v = *reinterpret_cast<const float4*>(prev + pbase + c);
+      float4 o;
+      o.x = step_rect(a.x, b.x, g.x, h.x, p.x, q.x, d, s, fr);
+      o.y = step_rect(a.y, b.y, g.y, h.y, p.y, q.y, d, s, fr);
+      o.z = step_rect(a.z, b.z, g.z, h.z, p.z, q.z, d, s, fr);
+      o.w = step_rect(a.w, b.w, g.w, h.w, p.w, q.w, d, s, fr);
+      *reinterpret_cast<float4*>(out + j) = o;
+      const float ov[4] = {o.x, o.y, o.z, o.w};
+      const float pv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    int64_t col = start + (int64_t)i * kThreads;
-    if (col < m) {
-      int64_t j = base + col;
-      float o = step_rect(x[j], f[j], xu[j], fu[j], xs[j], fs[j], d, s, fr);
+      for (int e = 0; e < 4; ++e) {
+        const float ee = __fsub_rn(ov[e], pv[e]);
+        err = __fadd_rn(err, __fmul_rn(ee, ee));
+        osq = __fadd_rn(osq, __fmul_rn(ov[e], ov[e]));
+      }
+    }
+  } else {
+    for (int64_t c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+      const int64_t j = base + c;
+      const float o =
+          step_rect(x[j], f[j], xu[j], fu[j], xs[j], fs[j], d, s, fr);
       out[j] = o;
-      float e = __fsub_rn(o, prev[pbase + col]);
-      err = __fadd_rn(err, __fmul_rn(e, e));
+      const float ee = __fsub_rn(o, prev[pbase + c]);
+      err = __fadd_rn(err, __fmul_rn(ee, ee));
       osq = __fadd_rn(osq, __fmul_rn(o, o));
     }
   }
   __shared__ float se[kThreads / 32], so[kThreads / 32];
+  __shared__ float parts[2 * kMaxCluster];  // rank 0's: every block's sums
   err = warp_sum(err);
   osq = warp_sum(osq);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -103,51 +158,40 @@ __global__ void step_rectify_accept_kernel(
   }
   __syncthreads();
   if (warp == 0) {
-    err = lane < kThreads / 32 ? se[lane] : 0.0f;
-    osq = lane < kThreads / 32 ? so[lane] : 0.0f;
-    err = warp_sum(err);
-    osq = warp_sum(osq);
-    if (lane == 0) {
-      err_part[row * gridDim.x + blockIdx.x] = err;
-      osq_part[row * gridDim.x + blockIdx.x] = osq;
+    const int warps = blockDim.x / 32;
+    err = warp_sum(lane < warps ? se[lane] : 0.0f);
+    osq = warp_sum(lane < warps ? so[lane] : 0.0f);
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    float* dst = cluster.map_shared_rank(parts, 0);
+    dst[2 * rank] = err;
+    dst[2 * rank + 1] = osq;
+  }
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    float e = parts[0], o = parts[1];
+    for (unsigned r = 1; r < cluster.num_blocks(); ++r) {
+      e = __fadd_rn(e, parts[2 * r]);
+      o = __fadd_rn(o, parts[2 * r + 1]);
     }
-  }
-}
-
-// second pass: one warp per row sums that row's tile partials
-__global__ void row_sum_kernel(const float* __restrict__ err_part,
-                               const float* __restrict__ osq_part,
-                               float* __restrict__ err_sq,
-                               float* __restrict__ out_sq, int64_t rows,
-                               int64_t tiles) {
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float e = 0.0f, o = 0.0f;
-  for (int64_t t = lane; t < tiles; t += 32) {
-    e += err_part[row * tiles + t];
-    o += osq_part[row * tiles + t];
-  }
-  e = warp_sum(e);
-  o = warp_sum(o);
-  if (lane == 0) {
     err_sq[row] = e;
     out_sq[row] = o;
   }
 }
 
+int64_t num_tiles(int64_t m) { return (m + kTile - 1) / kTile; }
+
 }  // namespace
 
 extern "C" {
-
-int64_t rectify_num_tiles(int64_t m) { return (m + kTile - 1) / kTile; }
 
 int fused_step_rectify_f32(const void* x, const void* f, const void* xu,
                            const void* fu, const void* xs, const void* fs,
                            const void* dt, const void* ds, const void* fire,
                            void* out, int64_t rows, int64_t m, void* stream) {
   if (rows <= 0 || m <= 0) return 0;
-  dim3 grid((unsigned)rectify_num_tiles(m), (unsigned)rows);
+  dim3 grid((unsigned)num_tiles(m), (unsigned)rows);
   step_rectify_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
       (const float*)xs, (const float*)fs, (const float*)dt, (const float*)ds,
@@ -155,27 +199,51 @@ int fused_step_rectify_f32(const void* x, const void* f, const void* xu,
   return (int)cudaGetLastError();
 }
 
+// One launch: a cluster of `cluster` blocks of `threads` threads per row,
+// block b of a row covering columns [b*span, (b+1)*span); `vec` is 4 for
+// float4 loads (m % 4 == 0, operands 16-byte aligned, span % 4 == 0) or 1.
+// `config` packs the plan of kernels/rectify/kernel.py `accept_plan`:
+// bits 0-3 cluster, bits 4-15 threads, bits 16-19 vec (one int keeps the
+// ctypes call short). `fire` is read as bytes holding 0 or 1 (a torch.bool
+// tensor); `sums` is [2, rows]: err_sq, then out_sq.
 int fused_step_rectify_accept_f32(
     const void* x, const void* f, const void* xu, const void* fu,
     const void* xs, const void* fs, const void* prev, const void* dt,
-    const void* ds, const void* fire, void* out, void* err_part,
-    void* osq_part, void* err_sq, void* out_sq, int64_t rows, int64_t m,
-    int64_t group, void* stream) {
+    const void* ds, const void* fire, void* out, void* sums, int64_t rows,
+    int64_t m, int64_t group, int64_t span, int config, void* stream) {
   if (rows <= 0 || m <= 0) return 0;
-  const int64_t tiles = rectify_num_tiles(m);
-  dim3 grid((unsigned)tiles, (unsigned)rows);
-  cudaStream_t st = (cudaStream_t)stream;
-  step_rectify_accept_kernel<<<grid, kThreads, 0, st>>>(
+  const int cluster = config & 15, threads = (config >> 4) & 4095;
+  const int vec = (config >> 16) & 15;
+  if (rows > 65535 || cluster < 1 || cluster > kMaxCluster || span < 1 ||
+      (int64_t)cluster * span < m || threads < 32 || threads > kThreads ||
+      threads % 32 || group < 1 || rows % group)
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (m % 4 || span % 4 ||
+                   ((uintptr_t)x | (uintptr_t)f | (uintptr_t)xu |
+                    (uintptr_t)fu | (uintptr_t)xs | (uintptr_t)fs |
+                    (uintptr_t)prev | (uintptr_t)out) % 16))
+    return (int)cudaErrorMisalignedAddress;
+  if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, (unsigned)rows);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, vec == 4 ? step_rectify_accept_kernel<4>
+                     : step_rectify_accept_kernel<1>,
       (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
       (const float*)xs, (const float*)fs, (const float*)prev,
       (const float*)dt, (const float*)ds, (const uint8_t*)fire, (float*)out,
-      (float*)err_part, (float*)osq_part, m, group);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const int warps = 8;
-  row_sum_kernel<<<(unsigned)((rows + warps - 1) / warps), warps * 32, 0, st>>>(
-      (const float*)err_part, (const float*)osq_part, (float*)err_sq,
-      (float*)out_sq, rows, tiles);
+      (float*)sums, (float*)sums + rows, m, group, span);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -125,10 +125,13 @@ def check(lib: ctypes.CDLL, family: str, err: int) -> None:
                        f"({fn(err).decode()})")
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device`` as a ctypes pointer."""
+def stream_handle(device_index: int) -> int:
+    """PyTorch's current CUDA stream on device ``device_index`` as a raw
+    handle (an int, which ctypes passes for a ``c_void_p`` argument). Reads
+    the handle without building a ``torch.cuda.Stream`` object: this runs
+    once per kernel launch."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def ptr(t) -> ctypes.c_void_p:

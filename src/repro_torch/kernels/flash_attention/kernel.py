@@ -64,7 +64,7 @@ def flash_attention(q, k, v, causal: bool = True,
     err = lib.flash_attention_fwd(
         build.ptr(qc), build.ptr(kc), build.ptr(vc), build.ptr(out),
         b, sq, sk, h, kvh, dh, float(scale), int(bool(causal)),
-        DTYPE_CODES[q.dtype], build.stream_handle(q.device))
+        DTYPE_CODES[q.dtype], build.stream_handle(q.get_device()))
     build.check(lib, "flash_attention", err)
     flash_attention.launches += 1
     return out

@@ -4,9 +4,14 @@ Replaces the Pallas TPU kernels ``fused_step_rectify`` and
 ``fused_step_rectify_accept`` (``src/repro/kernels/rectify/kernel.py``);
 the source is ``src/repro_torch/csrc/rectify.cu``. Bound on the card: bytes
 (six or seven f32 latent reads and one write per element), so one launch
-covers the whole [S*K, M] grid with per-row scalars, and the accept sums
-are reduced in the same pass (block partials, then a second fixed-order
-pass: deterministic, no atomics).
+covers the whole [S*K, M] grid with per-row scalars. The accept variant
+reduces its sums in the same launch: one thread block cluster per row
+(:func:`accept_plan` picks the cluster size and each block's span of
+columns), the block partials added in rank order through distributed
+shared memory: deterministic, no atomics, no scratch in device memory.
+At the serving shape that kernel is bound by launch latency, so its
+wrapper makes two allocations and one ctypes call, reads ``fire`` as the
+bool tensor's bytes and passes pointers and the stream as plain ints.
 
 These wrappers take CUDA tensors only; ``ops.py`` picks the plain version
 for CPU tensors. Each counts its launches in ``<wrapper>.launches``.
@@ -14,6 +19,8 @@ for CPU tensors. Each counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +28,11 @@ from repro_torch.kernels import build
 
 _I64 = ctypes.c_int64
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+
+MAX_CLUSTER = 8      # the portable thread block cluster size
+TARGET_BLOCKS = 128  # rows x cluster should reach this (132 SMs on an H100)
+MAX_THREADS = 256    # threads of a block (csrc kThreads)
 
 
 def _lib():
@@ -28,34 +40,46 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.fused_step_rectify_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
         lib.fused_step_rectify_f32.restype = ctypes.c_int
-        lib.fused_step_rectify_accept_f32.argtypes = \
-            [_P] * 15 + [_I64, _I64, _I64, _P]
-        lib.fused_step_rectify_accept_f32.restype = ctypes.c_int
-        lib.rectify_num_tiles.argtypes = [_I64]
-        lib.rectify_num_tiles.restype = _I64
         lib._typed = True
     return lib
 
 
+@functools.cache
+def _accept_fn():
+    """The typed C entry point of the accept kernel."""
+    fn = build.load("rectify").fused_step_rectify_accept_f32
+    fn.argtypes = [_P] * 12 + [_I64] * 4 + [_I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check_operands(lat, scal, fire):
-    dev = lat[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"rectify kernel needs CUDA tensors, got {dev}")
-    rows, m = lat[0].shape
+    """The device index, rows and M of [R, M] f32 latents with [R] f32
+    scalars and a [R] bool ``fire``, all contiguous on one CUDA device."""
+    x = lat[0]
+    if not x.is_cuda:
+        raise ValueError(f"rectify kernel needs CUDA tensors, got {x.device}")
+    dev, shape, f32 = x.get_device(), x.shape, torch.float32
+    if len(shape) != 2:
+        raise ValueError(f"rectify kernel: latents must be [R, M], got "
+                         f"{tuple(shape)}")
+    rows = shape[0]
     for t in lat:
-        if t.device != dev or t.dtype != torch.float32 or t.dim() != 2 \
-                or t.shape[1] != m or not t.is_contiguous():
+        if t.get_device() != dev or t.dtype is not f32 or t.shape != shape \
+                or not t.is_contiguous():
             raise ValueError("rectify kernel: latents must be contiguous f32 "
-                             f"[R, M] on {dev}, got {t.dtype} {tuple(t.shape)}")
+                             f"{tuple(shape)} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     for t in scal:
-        if t.device != dev or t.dtype != torch.float32 \
+        if t.get_device() != dev or t.dtype is not f32 \
                 or t.shape != (rows,) or not t.is_contiguous():
             raise ValueError(f"rectify kernel: dt/dsnap must be f32 [{rows}]")
-    if fire.device != dev or fire.dtype != torch.bool or fire.shape != (rows,):
+    if fire.get_device() != dev or fire.dtype is not torch.bool \
+            or fire.shape != (rows,):
         raise ValueError(f"rectify kernel: fire must be bool [{rows}]")
     if rows > 65535:
         raise ValueError(f"rectify kernel: at most 65535 rows, got {rows}")
-    return dev, rows, m
+    return dev, rows, shape[1]
 
 
 def fused_step_rectify(x, f, x_up, f_up, x_snap, f_snap, dt, dsnap, fire):
@@ -77,6 +101,33 @@ def fused_step_rectify(x, f, x_up, f_up, x_snap, f_snap, dt, dsnap, fire):
 fused_step_rectify.launches = 0
 
 
+class AcceptPlan(NamedTuple):
+    """One launch of the accept kernel over [rows, m]: a cluster of
+    ``cluster`` blocks of ``threads`` threads per row, block b covering
+    columns [b*span, min(m, (b+1)*span)), each thread taking ``vec``
+    columns (4: float4 loads, or 1) at a time."""
+    cluster: int
+    span: int
+    threads: int
+    vec: int
+
+
+@functools.lru_cache(maxsize=256)
+def accept_plan(rows: int, m: int, vec_ok: bool) -> AcceptPlan:
+    """The smallest power-of-two cluster (at most ``MAX_CLUSTER``) that
+    brings rows x cluster to ``TARGET_BLOCKS``, no larger than the row has
+    32-column pieces for; ``vec_ok``: m % 4 == 0 and the operands are
+    16-byte aligned."""
+    vec = 4 if vec_ok and m % 4 == 0 else 1
+    cluster = 1
+    while cluster < MAX_CLUSTER and rows * cluster < TARGET_BLOCKS \
+            and 2 * cluster * 32 <= m:
+        cluster *= 2
+    pieces = -(-m // (cluster * vec))  # vec-wide pieces of a block's span
+    threads = min(MAX_THREADS, -(-pieces // 32) * 32)
+    return AcceptPlan(cluster, pieces * vec, threads, vec)
+
+
 def fused_step_rectify_accept(x, f, x_up, f_up, x_snap, f_snap, prev,
                               dt, dsnap, fire):
     """Update + accept sums. prev: [P, M] with R divisible by P (row r uses
@@ -84,25 +135,29 @@ def fused_step_rectify_accept(x, f, x_up, f_up, x_snap, f_snap, prev,
     lat = (x, f, x_up, f_up, x_snap, f_snap)
     dev, rows, m = _check_operands(lat, (dt, dsnap), fire)
     p = prev.shape[0]
-    if prev.device != dev or prev.dtype != torch.float32 \
+    if prev.get_device() != dev or prev.dtype is not torch.float32 \
             or prev.shape != (p, m) or not prev.is_contiguous() \
             or p == 0 or rows % p:
         raise ValueError(f"rectify accept: prev must be contiguous f32 [P, "
                          f"{m}] with {rows} % P == 0, got {tuple(prev.shape)}")
-    lib = _lib()
-    tiles = lib.rectify_num_tiles(m)
-    fire_u8 = fire.to(torch.uint8).contiguous()
+    if not fire.is_contiguous():
+        fire = fire.contiguous()
+    ptrs = [t.data_ptr() for t in lat]
+    pp = prev.data_ptr()
     out = torch.empty_like(x)
-    parts = torch.empty((2, rows, tiles), dtype=torch.float32, device=dev)
-    sums = torch.empty((2, rows), dtype=torch.float32, device=dev)
-    err = lib.fused_step_rectify_accept_f32(
-        *map(build.ptr, lat), build.ptr(prev), build.ptr(dt),
-        build.ptr(dsnap), build.ptr(fire_u8), build.ptr(out),
-        build.ptr(parts[0]), build.ptr(parts[1]), build.ptr(sums[0]),
-        build.ptr(sums[1]), rows, m, rows // p, build.stream_handle(dev))
-    build.check(lib, "rectify", err)
+    sums = x.new_empty((2, rows))
+    op = out.data_ptr()
+    aligned = (pp | op | ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4]
+               | ptrs[5]) % 16 == 0
+    cluster, span, threads, vec = accept_plan(rows, m, aligned)
+    err = _accept_fn()(
+        *ptrs, pp, dt.data_ptr(), dsnap.data_ptr(), fire.data_ptr(), op,
+        sums.data_ptr(), rows, m, rows // p, span,
+        cluster | threads << 4 | vec << 16, build.stream_handle(dev))
+    if err:
+        build.check(_lib(), "rectify", err)
     fused_step_rectify_accept.launches += 1
-    return out, sums[0], sums[1]
+    return out, *sums.unbind()
 
 
 fused_step_rectify_accept.launches = 0

@@ -2,38 +2,106 @@
 
 Replaces the Pallas TPU kernel ``rmsnorm``
 (``src/repro/kernels/rmsnorm/kernel.py``). Bound on the card: bytes (one
-read and one write of x, ~4 flops per element); one block per row reduces
-the sum of squares in f32, so no row padding is needed. CUDA tensors only;
-``ops.py`` picks the plain version for CPU tensors. Launches are counted in
+read and one write of x, ~4 flops per element). :func:`plan` picks the
+launch from the width, the type and the operands' alignment:
+
+- **rows in registers** for widths up to ``MAX_VECS * BLOCK_THREADS``
+  vectors (8192 bf16 or 4096 f32 with 16-byte vectors, 1024 elements one
+  at a time): a row's slice stays in registers between the sum of squares
+  and the scaled store, so x is read once; several rows share a block,
+  which stages w in shared memory once for all of them. Every width of the
+  served models takes it (3072, 2560 and 5120 in bf16).
+- **two sweeps** for wider rows (5120 f32, for example): one block per
+  row, the second sweep re-reads x from L2.
+
+Vectors are 16 bytes when the width is a multiple of 8 bf16 or 4 f32 and
+x and w are 16-byte aligned, one element otherwise (an unaligned view is
+normalized where it lies, without a copy).
+
+The wrapper is lean, because the served models call it 73 or 82 times a
+round: no reshape or copy of a contiguous input, one ``torch.empty_like``,
+pointers and the current stream's raw handle passed as plain ints, the
+dtypes and the plan packed into one cached int (:func:`launch_config`), so
+the ctypes call takes eight arguments. CUDA tensors only; ``ops.py``
+picks the plain version for CPU tensors. Launches are counted in
 ``rmsnorm.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_VECS = 4            # vectors a thread holds of a row (csrc kMaxVecs)
+BLOCK_THREADS = 256     # threads of a block, and at most of a row
+                        # (csrc kBlockThreads)
+ROWS_IN_REGISTERS, TWO_SWEEPS = 0, 1
 
 
-def _lib():
-    lib = build.load("rmsnorm")
-    if not getattr(lib, "_typed", False):
-        lib.rmsnorm_fwd.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.rmsnorm_fwd.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+class Plan(NamedTuple):
+    """How one launch covers a [rows, d] input: ``variant``
+    (``ROWS_IN_REGISTERS`` or ``TWO_SWEEPS``), ``vec`` elements per load,
+    ``threads_per_row``, ``vecs_per_thread`` (rows in registers: thread t
+    holds the row's vectors t, t + T, ..., at most ``MAX_VECS``) and
+    ``rows_per_block``."""
+    variant: int
+    vec: int
+    threads_per_row: int
+    vecs_per_thread: int
+    rows_per_block: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(d: int, dtype: torch.dtype, aligned: bool) -> Plan:
+    """The launch for width ``d`` of ``dtype`` (f32 or bf16); ``aligned``:
+    x and w are both 16-byte aligned."""
+    full = 16 // dtype.itemsize
+    vec = full if aligned and d % full == 0 else 1
+    nvec = d // vec
+    if nvec > MAX_VECS * BLOCK_THREADS:
+        return Plan(TWO_SWEEPS, vec, BLOCK_THREADS, 0, 1)
+    warps = -(-nvec // (32 * MAX_VECS))
+    tpr = 32 * max(1, warps)
+    return Plan(ROWS_IN_REGISTERS, vec, tpr, max(1, -(-nvec // tpr)),
+                max(1, BLOCK_THREADS // tpr))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_config(d: int, x_dtype: torch.dtype, w_dtype: torch.dtype,
+                  aligned: bool) -> int:
+    """The dtypes and :func:`plan` packed into the one int that
+    ``rmsnorm_fwd`` takes (bit layout in ``csrc/rmsnorm.cu``)."""
+    return pack_config(DTYPE_CODES[x_dtype], DTYPE_CODES[w_dtype],
+                       plan(d, x_dtype, aligned))
+
+
+def pack_config(x_code: int, w_code: int, p: Plan) -> int:
+    return (x_code | w_code << 1 | p.variant << 2 | p.vec << 4
+            | p.vecs_per_thread << 8 | p.threads_per_row << 12
+            | p.rows_per_block << 24)
+
+
+@functools.cache
+def _fwd():
+    """The typed C entry point (built and loaded at first use)."""
+    fn = build.load("rmsnorm").rmsnorm_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
     """x: [..., D] (f32 or bf16), w: [D] (f32 or bf16) on CUDA."""
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"rmsnorm kernel needs CUDA tensors, got {x.device}"
-                         f" / {w.device}")
+    if not (x.is_cuda and w.is_cuda) or w.get_device() != x.get_device():
+        raise ValueError(f"rmsnorm kernel needs CUDA tensors on one device, "
+                         f"got {x.device} / {w.device}")
     if x.dtype not in DTYPE_CODES or w.dtype not in DTYPE_CODES:
         raise ValueError(f"rmsnorm kernel: unsupported dtypes {x.dtype}, "
                          f"{w.dtype}")
@@ -41,16 +109,19 @@ def rmsnorm(x, w, eps: float = 1e-6):
     if w.shape != (d,):
         raise ValueError(f"rmsnorm kernel: w must be [{d}], got "
                          f"{tuple(w.shape)}")
-    xf = x.reshape(-1, d).contiguous()
-    wc = w.contiguous()
-    out = torch.empty_like(xf)
-    lib = _lib()
-    err = lib.rmsnorm_fwd(build.ptr(xf), build.ptr(wc), build.ptr(out),
-                          xf.shape[0], d, float(eps), DTYPE_CODES[x.dtype],
-                          DTYPE_CODES[w.dtype], build.stream_handle(x.device))
-    build.check(lib, "rmsnorm", err)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not w.is_contiguous():
+        w = w.contiguous()
+    xp, wp = x.data_ptr(), w.data_ptr()
+    out = torch.empty_like(x)
+    err = _fwd()(xp, wp, out.data_ptr(), x.numel() // d if d else 0, d, eps,
+                 launch_config(d, x.dtype, w.dtype, (xp | wp) % 16 == 0),
+                 build.stream_handle(x.get_device()))
+    if err:
+        build.check(build.load("rmsnorm"), "rmsnorm", err)
     rmsnorm.launches += 1
-    return out.reshape(x.shape)
+    return out
 
 
 rmsnorm.launches = 0

@@ -72,7 +72,7 @@ def ssd_chunk(c_mat, b_mat, xdt, cum):
     lib = _lib()
     err = lib.ssd_chunk_fwd(build.ptr(cc), build.ptr(bc), build.ptr(xc),
                             build.ptr(uc), build.ptr(y), build.ptr(s), g, h,
-                            lc, n, hd, build.stream_handle(xdt.device))
+                            lc, n, hd, build.stream_handle(xdt.get_device()))
     build.check(lib, "ssd_scan", err)
     ssd_chunk.launches += 1
     return y, s

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.rectify.ref import (fused_step_rectify_accept_ref,
+from repro_torch.kernels.rectify.ref import (accept_sums_in_kernel_order,
+                                             fused_step_rectify_accept_ref,
                                              fused_step_rectify_ref)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_batched_ref
@@ -57,6 +58,81 @@ def test_rmsnorm_kernel(cuda, dtype, tol):
     w = torch.randn(3072, generator=cuda, device="cuda").to(dtype)
     torch.testing.assert_close(rmsnorm(x, w).float(),
                                rmsnorm_ref(x, w).float(), atol=tol, rtol=0)
+
+
+# (rows, M, P) with P dividing rows: P = 1, 4 (where it divides) and rows
+ACCEPT_CASES = sorted({(rows, m, p) for rows in (1, 3, 32, 64)
+                       for m in (1, 3, 1024, 1_000_003)
+                       for p in (1, 4, rows) if rows % p == 0})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m,p", ACCEPT_CASES)
+def test_accept_kernel_sweep(cuda, rows, m, p):
+    """The one-launch accept kernel: ``out`` bitwise its plain version, the
+    sums within rtol 1e-5 of it, bitwise equal between two launches and
+    bitwise the kernel's order emulated in plain torch."""
+    from repro_torch.kernels.rectify import kernel
+    lat = [torch.randn(rows, m, generator=cuda, device="cuda")
+           for _ in range(6)]
+    prev = torch.randn(p, m, generator=cuda, device="cuda")
+    dt, ds = (torch.rand(rows, generator=cuda, device="cuda")
+              for _ in range(2))
+    fire = torch.rand(rows, generator=cuda, device="cuda") < 0.5
+    out, e, o = kernel.fused_step_rectify_accept(*lat, prev, dt, ds, fire)
+    _, e2, o2 = kernel.fused_step_rectify_accept(*lat, prev, dt, ds, fire)
+    ro, re, rs = fused_step_rectify_accept_ref(*lat, prev, dt, ds, fire)
+    assert torch.equal(out, ro)
+    torch.testing.assert_close(e, re, rtol=1e-5, atol=0)
+    torch.testing.assert_close(o, rs, rtol=1e-5, atol=0)
+    assert torch.equal(e, e2) and torch.equal(o, o2)
+    ke, ko = accept_sums_in_kernel_order(
+        ro, prev, *kernel.accept_plan(rows, m, True))
+    assert torch.equal(e, ke) and torch.equal(o, ko)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [128, 1000, 2560, 3072, 5120])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_rmsnorm_kernel_widths(cuda, d, dtype, tol, offset):
+    """Both variants (5120 f32 takes the two sweeps, every other width the
+    rows in registers), 16-byte vectors and, for a view one element off
+    16-byte alignment (offset 1), one element at a time."""
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    rows = 300
+    flat = torch.randn(rows * d + offset, generator=cuda, device="cuda")
+    x = flat.to(dtype)[offset:].view(rows, d)
+    w = torch.randn(d, generator=cuda, device="cuda").to(dtype)
+    torch.testing.assert_close(rmsnorm(x, w).float(),
+                               rmsnorm_ref(x, w).float(), atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_follows_current_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` the kernel runs on s: with the default
+    stream held busy by a long sleep, the result is complete once s alone
+    has finished, and the default stream is still busy then."""
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm
+    x = torch.randn(2048, 3072, generator=cuda, device="cuda").bfloat16()
+    w = torch.randn(3072, generator=cuda, device="cuda").bfloat16()
+    ref = rmsnorm_ref(x, w)
+    rmsnorm(x, w)  # build, load and plan before the clock starts
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of the default stream
+    with torch.cuda.stream(s):
+        out = rmsnorm(x, w)
+    s.synchronize()
+    busy = not torch.cuda.current_stream().query()
+    with torch.cuda.stream(s):
+        err = float((out.float() - ref.float()).abs().max())
+    s.synchronize()
+    torch.cuda.synchronize()
+    assert busy, "the default stream finished first: the test proves nothing"
+    assert err <= 5e-2
 
 
 @pytest.mark.gpu
