@@ -1,7 +1,7 @@
 """Ablations of the port's redesigned CUDA kernels on one card: what bounds
 them.
 
-    python3 benchmarks/torch_kernel_ablation.py [ssd,flash,rmsnorm,accept,host]
+    python3 benchmarks/torch_kernel_ablation.py [ssd,flash,rmsnorm,profiler,step,accept,host]
 
 ``ssd_chunk``: copies of ``src/repro_torch/csrc/ssd_scan.cu`` with one part
 of the kernel cut out by a text substitution (each cut is asserted to
@@ -15,13 +15,15 @@ take for the same output writes and input reads, a floor the card reaches
 for this traffic. ``flash_attention``: both routes (bf16 tensor cores, f32
 CUDA cores) at the two serving shapes, beside SDPA.
 
-``rmsnorm`` and ``fused_step_rectify_accept``: the launchers take any
-valid launch plan, so the alternatives to the wrappers' own plans are
-launched through the C interface and timed by device time (a profiler
-window) at the serving shapes, beside ``F.rms_norm``; every launch is held
-against the plain version. ``host``: what the host spends per call on each
-step of both wrappers and on ``F.rms_norm`` (wall time of 200 calls, the
-device never the slower side).
+``rmsnorm``, ``fused_step_rectify`` (section ``step``) and
+``fused_step_rectify_accept``: the launchers take any valid launch plan,
+so the alternatives to the wrappers' own plans are launched through the C
+interface and timed by device time (a profiler window) at the serving
+shapes, beside ``F.rms_norm``; every launch is held against the plain
+version. ``profiler``: how many kernel records a profiler window keeps,
+with and without host gaps at its edges, beside a CUDA graph's count. ``host``: what the host spends per call on each
+step of the three wrappers and on ``F.rms_norm`` (wall time of 200 calls,
+the device never the slower side).
 
 Times of the ssd and flash sections are device times: CUDA events around
 back-to-back launches through ctypes (the loop issues faster than the
@@ -185,23 +187,119 @@ def flash_routes(gen, stream):
 
 
 def profiled_ms(fn, calls: int = 50):
-    """Device time per call of ``fn`` (all kernels it launches) from a
-    ``torch.profiler`` window after a warm-up window, and the kernel
-    launches per call."""
+    """Device time per launch of ``fn`` (all kernels it launches) from a
+    ``torch.profiler`` window with host gaps at both ends (see
+    :func:`profiler_windows`), and the kernel launches per call."""
+    import torch
+    prof = _window(fn, calls, GAP_S)
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.key.startswith("ProfilerStep")]
+    n = sum(e.count for e in ev)
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / max(1, n),
+            n / calls)
+
+
+# host seconds between a profiler window's edges and its device work, as
+# chip_smoke.GAP_S (see profiler_windows)
+GAP_S = 0.005
+
+
+def _window(fn, calls: int, gap_s: float):
+    """A ``torch.profiler`` window over ``calls`` calls of ``fn``, after a
+    warm-up window of as many calls; with ``gap_s``, the host waits that
+    long after the window opens and after the device drained, before it
+    closes."""
+    import time
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for step in range(2):  # the first window warms the tracer up
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            if step == 0:
-                prof.step()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in ev) / 1e3 / calls,
-            sum(e.count for e in ev) / calls)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(gap_s)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(gap_s)
+    return prof
+
+
+def profiler_windows(gen, windows: int = 30, calls: int = 20):
+    """How many launches a ``torch.profiler`` window records, without and
+    with host gaps at its edges, for the step and the accept wrapper and a
+    library kernel of the same size (``torch.add``), at [32, 1024]. Each
+    recorded kernel is matched to its launch's runtime record by
+    correlation id: a launch without a kernel is a lost record, and its
+    position in the window (0 = first call) says where the loss is; a
+    kernel stamped before its own launch shows the device clock reading
+    behind the host's, which is what drops a kernel that ran just after
+    the window opened. The kernels a call enqueues are also counted from
+    a captured CUDA graph."""
+    import torch
+    from chip_smoke import graph_kernel_nodes
+    from repro_torch.kernels.rectify import kernel as K
+    rows, m = 32, 1024
+    lat = [torch.randn(rows, m, generator=gen, device="cuda")
+           for _ in range(6)]
+    prev = torch.randn(4, m, generator=gen, device="cuda")
+    dt, ds = (torch.rand(rows, generator=gen, device="cuda") for _ in "ab")
+    fire = torch.rand(rows, generator=gen, device="cuda") < 0.5
+    sink = torch.empty_like(lat[0])
+    fns = {"step": lambda: K.fused_step_rectify(*lat, dt, ds, fire),
+           "accept": lambda: K.fused_step_rectify_accept(*lat, prev, dt, ds,
+                                                         fire),
+           "torch.add": lambda: torch.add(lat[0], lat[1], out=sink)}
+    for name, fn in fns.items():
+        print(json.dumps({"profiler": name, "graph_kernel_nodes":
+                          graph_kernel_nodes(fn)}), flush=True)
+    for gap in (0.0, GAP_S):
+        for name, fn in fns.items():
+            recorded, lost_at, skew, early, margin = [], [], [], [], []
+            for _ in range(windows):
+                res = _window(fn, calls, gap).profiler.kineto_results
+                evs = [e for e in res.events()
+                       if not e.name().startswith("ProfilerStep")]
+                dev = {}
+                for e in evs:
+                    if e.device_type() == torch.autograd.DeviceType.CUDA:
+                        dev[e.correlation_id()] = dev[
+                            e.linked_correlation_id()] = e
+                api = sorted((e for e in evs if e.name().startswith(
+                    "cudaLaunchKernel")), key=lambda e: e.start_ns())
+                recorded.append(sum(
+                    e.device_type() == torch.autograd.DeviceType.CUDA
+                    for e in evs))
+                for i, e in enumerate(api):
+                    k = dev.get(e.correlation_id())
+                    if k is None:
+                        lost_at.append(i)
+                        continue
+                    skew.append((k.start_ns() - e.start_ns()) / 1e3)
+                    if k.start_ns() < e.start_ns():
+                        early.append(i)
+                    margin.append((k.start_ns() - res.trace_start_ns()) / 1e3)
+            skew.sort()
+            print(json.dumps({
+                "profiler": name, "gap_s": gap, "windows": windows,
+                "calls": calls, "launch_records_per_window": len(api),
+                "kernels_recorded_min": min(recorded),
+                "kernels_recorded_mean": sum(recorded) / windows,
+                "windows_with_loss": sum(r < calls for r in recorded),
+                "lost_at_call": sorted(set(lost_at)),
+                "lost_total": len(lost_at),
+                "kernel_minus_launch_us": {
+                    "min": skew[0] if skew else None,
+                    "median": skew[len(skew) // 2] if skew else None},
+                # kernels stamped before their own launch: the device
+                # clock read behind the host's, and at which calls
+                "kernels_before_launch": len(early),
+                "before_launch_at_call": sorted(set(early)),
+                "kernel_after_window_start_us_min":
+                    min(margin) if margin else None}),
+                flush=True)
 
 
 def host_us(fn, n: int = 200, reps: int = 7) -> float:
@@ -280,6 +378,53 @@ def _accept_args(lat, prev, dt, ds, fire, out, sums, plan, stream):
         cluster | threads << 4 | vec << 16, stream]
 
 
+def step_plans(gen, rotations: int = 7):
+    """The step kernel at the serving shape ([32, 1024]) through every
+    block size and both load widths, the wrapper's own plan marked: each
+    plan's device time per launch in ``rotations`` profiler windows, taken
+    in turns with the other plans (median, min, max)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rectify import kernel as K
+    from repro_torch.kernels.rectify.ref import fused_step_rectify_ref
+    fn = K._step_fn()
+    stream = build.stream_handle(0)
+    rows, m = 32, 1024
+    lat = [torch.randn(rows, m, generator=gen, device="cuda")
+           for _ in range(6)]
+    dt, ds = (torch.rand(rows, generator=gen, device="cuda") for _ in "ab")
+    fire = torch.rand(rows, generator=gen, device="cuda") < 0.5
+    ref = fused_step_rectify_ref(*lat, dt, ds, fire)
+    out = torch.empty_like(ref)
+    chosen = K.step_plan(rows, m, True)
+    plans = [K.StepPlan(threads, vec) for vec in (4, 1)
+             for threads in (32, 64, 128, 256)]
+    args, bitwise, times, counts = {}, {}, {p: [] for p in plans}, set()
+    for plan in plans:
+        args[plan] = [t.data_ptr() for t in (*lat, dt, ds, fire, out)] + [
+            rows, m, plan.word, stream]
+        out.zero_()
+        if fn(*args[plan]):
+            raise SystemExit(f"step plan {plan} failed to launch")
+        torch.cuda.synchronize()
+        bitwise[plan] = bool(torch.equal(out, ref))
+    for _ in range(rotations):  # the plans in turn, so drift hits them all
+        for plan in plans:
+            ms, n = profiled_ms(lambda: fn(*args[plan]))
+            times[plan].append(ms)
+            counts.add(n)
+    for plan in plans:
+        t = sorted(times[plan])
+        print(json.dumps({
+            "kernel": "fused_step_rectify", "shape": [rows, m],
+            "plan": plan._asdict(), "chosen": plan == chosen,
+            "blocks": rows * -(-m // (plan.threads * plan.vec)),
+            "device_ms": t[len(t) // 2], "device_ms_min": t[0],
+            "device_ms_max": t[-1], "windows": rotations,
+            "kernels_per_call": sorted(counts),
+            "out_bitwise": bitwise[plan]}), flush=True)
+
+
 def accept_plans(gen):
     """The accept kernel at the serving shape ([32, 1024], prev [4, 1024])
     through every cluster size, load width and block size."""
@@ -350,6 +495,11 @@ def host_path(gen):
                          build.stream_handle(0))
     abad = list(aargs)
     abad[-2] = 0  # cluster 0: returns before any launch
+    step_plan = R.step_plan(32, 1024, True)
+    sargs = [t.data_ptr() for t in (*lat, sc, sc, fire, out)] + [
+        32, 1024, step_plan.word, build.stream_handle(0)]
+    sbad = list(sargs)
+    sbad[-2] = 0  # threads 0: returns before any launch
     steps = {
         "F.rms_norm": lambda: F.rms_norm(x, (d,), w, 1e-6),
         "rmsnorm wrapper": lambda: K.rmsnorm(x, w),
@@ -369,6 +519,11 @@ def host_path(gen):
             x.dtype in K.DTYPE_CODES, w.dtype in K.DTYPE_CODES,
             w.shape != (d,), x.is_contiguous(), w.is_contiguous()),
         "data_ptr x3": lambda: (x.data_ptr(), w.data_ptr(), y.data_ptr()),
+        "step wrapper": lambda: R.fused_step_rectify(*lat, sc, sc, fire),
+        "step C call (launch)": lambda: R._step_fn()(*sargs),
+        "step C call (no launch, 14 arguments)": lambda: R._step_fn()(*sbad),
+        "step_plan (cached)": lambda: R.step_plan(32, 1024, True).word,
+        "torch.empty_like (32, 1024)": lambda: torch.empty_like(lat[0]),
         "accept wrapper": lambda: R.fused_step_rectify_accept(
             *lat, prev, sc, sc, fire),
         "accept checks": lambda: R._check_operands(lat, (sc, sc), fire),
@@ -395,17 +550,21 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     sections = sys.argv[1].split(",") if len(sys.argv) > 1 else \
-        ["ssd", "flash", "rmsnorm", "accept", "host"]
+        ["ssd", "flash", "rmsnorm", "profiler", "step", "accept", "host"]
     if "ssd" in sections:
         ablate_ssd(_build(_variants()), gen, stream)
     if "flash" in sections:
         flash_routes(gen, stream)
     if "rmsnorm" in sections:
         rmsnorm_plans(gen)
+    if "profiler" in sections:
+        profiler_windows(gen)
+    if "step" in sections:
+        step_plans(gen)
     if "accept" in sections:
         accept_plans(gen)
     if "host" in sections:

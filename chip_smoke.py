@@ -9,8 +9,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. build    — every CUDA source of the port built with ``nvcc`` (in
               parallel) into ``build/kernels/``;
 3. kernels  — each kernel wrapper against its plain PyTorch version at the
-              serving shapes plus a sweep, with its stated tolerance, and
-              timed (median of CUDA-event timings) beside the plain
+              serving shapes plus a sweep (rectify also through its
+              one-column path, one device kernel a call), with its
+              stated tolerance, and timed (median of CUDA-event timings) beside the plain
               version, one library call where one computes the same
               function, and its bound (bytes or operations at the H100's
               published peaks); flash over every case at every compiled
@@ -39,17 +40,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
               round body's accept call must launch exactly one device
               kernel), and one
               profiled ``ChordsEngine`` batch gives the device time of its
-              rectify kernel;
-7. ssd      — one ``zamba2-2.7b`` Mamba2 layer at full width (d_model
+              rectify kernel (one device kernel a round, and a call of
+              the round body's step must launch exactly one);
+7. overlap-serve — the SLA trace (``serve/sched/workload.py``: bulk
+              requests, then urgent and soft ones with deadlines arriving
+              mid-run) at the same size, through the synchronous and the
+              overlap engine (``overlap=True``), FIFO and EDF-preempt, rtol
+              0 and 0.05: samples bitwise equal per request, equal rounds,
+              latencies and deadline counts, fewer readbacks, launch
+              counts of every dispatched round, and no synchronizing call
+              between speculating and verifying
+              (``torch.cuda.set_sync_debug_mode("error")``); then the
+              device idle share of each mode from a profiled window;
+8. ssd      — one ``zamba2-2.7b`` Mamba2 layer at full width (d_model
               2560), f32, B=2, 512 tokens (two chunks of 256, so the
               inter-chunk recurrence runs on the card): the kernel
               arrangement against the plain scan body;
-8. hybrid-drift — ``zamba2-2.7b`` at full width and all 54 layers, random
+9. hybrid-drift — ``zamba2-2.7b`` at full width and all 54 layers, random
               bf16 weights from a seeded generator: ``denoise`` with the
               kernels against the plain versions on a [32, 64, 16] batch
               (relative L2 error), exact launch counts per call; and an f32
               check at full width and 6 layers (one group);
-9. hybrid-serve — phase 6 with the hybrid drift (launch counts of all five
+10. hybrid-serve — phase 6 with the hybrid drift (launch counts of all five
               kernels, profile).
 
 The line before the last holds ``{"kernels": [...]}``; the line before that
@@ -67,8 +79,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "parity", "drift", "serve", "ssd",
-          "hybrid-drift", "hybrid-serve")
+PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
+          "overlap-serve", "ssd", "hybrid-drift", "hybrid-serve")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -101,26 +113,93 @@ def median_ms(fn, iters: int = 10, reps: int = 10, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, calls: int = 20):
-    """Device time per call of ``fn`` from a short ``torch.profiler``
-    window over ``calls`` calls (after a first window of as many calls that
-    warms the tracer up: a launch at the very start of a window can go
-    unrecorded), with the kernels it launched: (ms per call, kernel launches
-    per call, kernel names)."""
+# host seconds between a profiler window's edges and its device work. The
+# profiler keeps a kernel only if its device timestamp falls inside the
+# window's span on the host clock, and on the H100 host that timestamp
+# read up to 0.70 ms behind the host's clock (a kernel stamped before its
+# own launch), so kernels run just after the window opened were dropped
+# (``benchmarks/torch_kernel_ablation.py profiler``: the first two calls
+# of a window without the gap, none in 90 windows with it).
+GAP_S = 0.005
+
+
+def profiled(warm, body):
+    """``warm()`` in a warm-up window, then ``body()`` in the recorded one,
+    each followed by a synchronize, under ``torch.profiler``; the host waits
+    ``GAP_S`` after the recorded window opens and again before it closes.
+    Returns the device events of ``body``."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for step in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            if step == 0:
-                prof.step()
-    events = _device_events(prof)
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(GAP_S)
+        body()
+        torch.cuda.synchronize()
+        time.sleep(GAP_S)
+    return _device_events(prof)
+
+
+def device_ms(fn, calls: int = 20):
+    """Device time per call of ``fn`` from a ``torch.profiler`` window over
+    ``calls`` calls (see :func:`profiled`), with the kernels it launched:
+    (ms per call, kernel launches per call, kernel names)."""
+    def body():
+        for _ in range(calls):
+            fn()
+    events = profiled(body, body)
     return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
             sum(e.count for e in events) / calls,
             sorted({e.key[:60] for e in events}))
+
+
+def graph_kernel_nodes(fn) -> int:
+    """Kernel nodes of a CUDA graph captured from one call of ``fn``: the
+    device kernels a call enqueues, counted without the profiler (driver
+    API ``cuGraphGetNodes``/``cuGraphNodeGetType``)."""
+    import ctypes
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    raw, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise AssertionError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    g.reset()
+    return kernels
+
+
+def check_one_kernel(what: str, tag: str, fn) -> dict:
+    """One device kernel a call of ``fn``, counted twice: a profiler window
+    shows ``tag``'s kernel and no other (a cast or a second pass would show
+    by its name) exactly once a call, and a CUDA graph captured from one
+    call holds exactly one kernel node. Returns the window's device time
+    a call."""
+    ms, per_call, names = device_ms(fn)
+    nodes = graph_kernel_nodes(fn)
+    if per_call != 1 or nodes != 1 or not names \
+            or not all(tag in n for n in names):
+        raise AssertionError(f"{what}: {per_call} device kernels a call "
+                             f"({names}), {nodes} kernel nodes in a graph "
+                             f"of one call, want one {tag}")
+    return {"kernels_per_call": per_call, "graph_kernel_nodes": nodes,
+            "device_ms": ms, "names": names}
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -205,9 +284,14 @@ def check_rectify(gen, records):
         lat, prev, dt, ds, fire = _rectify_operands(rows, m, p, gen)
         out = K.fused_step_rectify(*lat, dt, ds, fire)
         ref = fused_step_rectify_ref(*lat, dt, ds, fire)
-        if not torch.equal(out, ref):
+        # the step kernel's one-column path: views 4 bytes off alignment
+        views = [torch.cat((t.new_zeros(1), t.flatten()))[1:].view(rows, m)
+                 for t in lat]
+        out1 = K.fused_step_rectify(*views, dt, ds, fire)
+        if not (torch.equal(out, ref) and torch.equal(out1, ref)):
             raise AssertionError(f"rectify [{rows},{m}] not bitwise: max "
-                                 f"err {max_err(out, ref)}")
+                                 f"err {max_err(out, ref)}, unaligned "
+                                 f"{max_err(out1, ref)}")
         out2, e2, o2 = K.fused_step_rectify_accept(*lat, prev, dt, ds, fire)
         _, e3, o3 = K.fused_step_rectify_accept(*lat, prev, dt, ds, fire)
         ref2, re2, ro2 = fused_step_rectify_accept_ref(*lat, prev, dt, ds,
@@ -224,6 +308,8 @@ def check_rectify(gen, records):
             raise AssertionError(f"rectify accept [{rows},{m}]: sums differ "
                                  f"between two launches")
         results.append({"rows": rows, "m": m, "prev_rows": p,
+                        "step_plans": [K.step_plan(rows, m, True)._asdict(),
+                                       K.step_plan(rows, m, False)._asdict()],
                         "plan": plan._asdict(), "out_bitwise": True,
                         "sums_repeat_bitwise": True,
                         "sums_kernel_order_bitwise": bool(
@@ -241,12 +327,14 @@ def check_rectify(gen, records):
                   fused_step_rectify_ref(*lat, dt, ds, fire))
     nbytes = 4 * (7 * rows * m + 3 * rows)
     bms, by = bound_ms(nbytes, 7 * rows * m, "float32")
-    dev_ms, per_call, names = device_ms(
-        lambda: K.fused_step_rectify(*lat, dt, ds, fire))
+    one = check_one_kernel("rectify", "step_rectify_kernel",
+                           lambda: K.fused_step_rectify(*lat, dt, ds, fire))
     records["fused_step_rectify"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        max_abs_err=err, shape=[rows, m], device_ms=dev_ms,
-        kernels_per_call=per_call, kernel_names=names)
+        max_abs_err=err, shape=[rows, m], device_ms=one["device_ms"],
+        kernels_per_call=one["kernels_per_call"],
+        graph_kernel_nodes=one["graph_kernel_nodes"],
+        kernel_names=one["names"], plan=K.step_plan(rows, m, True)._asdict())
     ms = median_ms(lambda: K.fused_step_rectify_accept(*lat, prev, dt, ds,
                                                        fire))
     plain = median_ms(lambda: fused_step_rectify_accept_ref(
@@ -256,16 +344,15 @@ def check_rectify(gen, records):
     err = max(max_err(x, y) for x, y in zip(a, b))
     nbytes = 4 * (7 * rows * m + p * m + 5 * rows)
     bms, by = bound_ms(nbytes, 12 * rows * m, "float32")
-    dev_ms, per_call, names = device_ms(
+    one = check_one_kernel(
+        "rectify accept", "step_rectify_accept_kernel",
         lambda: K.fused_step_rectify_accept(*lat, prev, dt, ds, fire))
-    if per_call != 1 or not all("step_rectify_accept_kernel" in n
-                                for n in names):
-        raise AssertionError(f"rectify accept: {per_call} kernels a call "
-                             f"({names}), want one step_rectify_accept")
     records["fused_step_rectify_accept"] = dict(
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-        max_abs_err=err, shape=[rows, m, p], device_ms=dev_ms,
-        kernels_per_call=per_call, plan=K.accept_plan(rows, m, True)._asdict())
+        max_abs_err=err, shape=[rows, m, p], device_ms=one["device_ms"],
+        kernels_per_call=one["kernels_per_call"],
+        graph_kernel_nodes=one["graph_kernel_nodes"],
+        plan=K.accept_plan(rows, m, True)._asdict())
     emit("kernels/rectify", cases=results,
          timings={k: records[k] for k in ("fused_step_rectify",
                                           "fused_step_rectify_accept")})
@@ -770,6 +857,159 @@ def phase_serve(cfg, params, phase="serve"):
     return {name: c1[name] + c2[name] for name in c1}
 
 
+def _serve_trace(drift, tgrid, n, k, s, overlap, policy=None, rtol=0.0,
+                 trace=None):
+    """One engine serving ``trace`` (requests submitted up front) or, by
+    default, the SLA trace (``sched/workload.py``), launch counters reset
+    just before: (results, stats, wall s, launch counts). The overlap
+    engine runs with ``guard_syncs``: a synchronizing CUDA call between
+    speculating and verifying raises."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve.sched.workload import (drive, sla_demo_trace,
+                                                  sla_engine_kwargs)
+    # the SLA trace's requests carry their rtol, the others the engine's
+    kw = sla_engine_kwargs(n) if trace is None else {"rtol": rtol}
+    engine = ContinuousEngine(drift, (1, 64, 16), n, k, tgrid, num_slots=s,
+                              policy=policy, use_kernel=True,
+                              overlap=overlap, guard_syncs=overlap,
+                              device="cuda", **kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if trace is None:
+            done = drive(engine, *sla_demo_trace(n, rtol=rtol))
+        else:
+            for req in trace:
+                engine.submit(req)
+            done = dict(engine.run_until_drained())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return done, engine.stats(), wall, launch_counts()
+
+
+def _sync_vs_overlap(what, per_call, run):
+    """``run(overlap)`` in both modes: every dispatched round (wasted ones
+    included) launched the accept kernel once and the backbone's per-round
+    counts, and per request the overlap engine's sample is bitwise the
+    synchronous one's, with equal rounds, core and latency; the deadline,
+    preemption, round and served counts are equal. Returns both modes'
+    (results, stats, wall) and the summed launch counts."""
+    import torch
+    res, total = {}, {}
+    for overlap in (False, True):
+        done, st, wall, counts = run(overlap)
+        rounds = st["rounds_total"] + st["speculated_rounds_wasted"]
+        want = {"fused_step_rectify_accept": rounds, "fused_step_rectify": 0,
+                **{name: c * rounds for name, c in per_call.items()}}
+        if counts != want or st["dispatches"] != rounds:
+            raise AssertionError(
+                f"{what} overlap {overlap}: launches {counts} != {want} "
+                f"(dispatches {st['dispatches']}, rounds {rounds})")
+        total = {name: total.get(name, 0) + c for name, c in counts.items()}
+        res[overlap] = (done, st, wall)
+    (d_s, st_s, _), (d_o, st_o, _) = res[False], res[True]
+    if sorted(d_s) != sorted(d_o):
+        raise AssertionError(f"{what}: served {sorted(d_s)} vs {sorted(d_o)}")
+    for rid, a in d_s.items():
+        b = d_o[rid]
+        if not (torch.equal(a.sample, b.sample)
+                and (a.rounds_used, a.accepted_core, a.latency_rounds) ==
+                (b.rounds_used, b.accepted_core, b.latency_rounds)):
+            raise AssertionError(
+                f"{what}: request {rid} sync ({a.rounds_used}, "
+                f"{a.accepted_core}, {a.latency_rounds}) vs overlap "
+                f"({b.rounds_used}, {b.accepted_core}, {b.latency_rounds}), "
+                f"max err {max_err(a.sample, b.sample)}")
+    for key in ("deadline_misses", "preemptions", "rounds_total", "served"):
+        if st_s[key] != st_o[key]:
+            raise AssertionError(f"{what}: {key} {st_s[key]} vs {st_o[key]}")
+    if st_o["speculated_rounds_wasted"] > st_o["speculation_rollbacks"]:
+        raise AssertionError(f"{what}: overlap stats {st_o}")
+    return res, total
+
+
+SPEC_KEYS = ("rounds_total", "host_syncs", "speculations",
+             "speculation_confirms", "speculation_rollbacks",
+             "speculated_rounds_wasted", "drain_lag_rounds", "dispatches",
+             "round_gap_mean_s", "round_gap_p95_s", "deadline_misses",
+             "preemptions")
+
+
+def _modes_record(res, **extra):
+    d_s = res[False][0]
+    rec = dict(extra, bitwise=True,
+               rounds_used=[d_s[r].rounds_used for r in sorted(d_s)])
+    for overlap, mode in ((False, "sync"), (True, "overlap")):
+        _, st, wall = res[overlap]
+        rec[mode] = dict(wall_s=wall, s_per_round=wall / st["rounds_total"],
+                         **{key: st[key] for key in SPEC_KEYS})
+    return rec
+
+
+def phase_overlap_serve(cfg, params, phase="overlap-serve"):
+    """The SLA trace (4 bulk requests, 2 urgent with tight deadlines and 2
+    soft ones arriving mid-run) at the launcher defaults (latent (1, 64,
+    16), K=8, S=4, N=50) through the synchronous and the overlap engine,
+    with FIFO and EDF-preempt, at rtol 0 and 0.05, in one process
+    (:func:`_sync_vs_overlap` holds the two modes equal); at rtol 0 nothing
+    rolls back, and the overlap engine reads back less often. Then a
+    rollback trace: two requests on one slot at rtol 1e-9, where no two
+    emissions agree, so the lane runs to the force-accept round N while the
+    cold cost model predicts it done earlier, and speculative re-admissions
+    of the slot roll back: at least one rollback, 2N rounds, and the same
+    bitwise and launch checks (wasted rounds included). No synchronizing
+    call runs between speculating and verifying in any overlap run. Last, a
+    profiled window of each mode on a full grid gives its device idle
+    share."""
+    from repro_torch.core import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.serve import Request
+    n, k, s = 50, 8, 4
+    tgrid = uniform_tgrid(n, device="cuda")
+    drift = make_drift(params, cfg.replace(use_kernels=True))
+    per_call = per_call_launches(cfg)
+    runs, total = [], {}
+    for policy in ("fifo", "edf-preempt"):
+        for rtol in (0.0, 0.05):
+            what = f"{phase} {policy} rtol {rtol}"
+            res, counts = _sync_vs_overlap(
+                what, per_call, lambda overlap: _serve_trace(
+                    drift, tgrid, n, k, s, overlap, policy, rtol))
+            total = {name: total.get(name, 0) + c
+                     for name, c in counts.items()}
+            _check_served(list(res[False][0].items()), 8, n, (1, 64, 16))
+            st_s, st_o = res[False][1], res[True][1]
+            if (rtol == 0.0 and st_o["speculation_rollbacks"]) \
+                    or st_o["host_syncs"] >= st_s["host_syncs"]:
+                raise AssertionError(f"{what}: overlap stats {st_o}")
+            runs.append(_modes_record(res, policy=policy, rtol=rtol))
+            emit(phase + "/trace", **runs[-1])
+    what = f"{phase} rollback"
+    res, counts = _sync_vs_overlap(
+        what, per_call, lambda overlap: _serve_trace(
+            drift, tgrid, n, k, 1, overlap, rtol=1e-9,
+            trace=[Request(rid=rid, seed=500 + rid) for rid in (0, 1)]))
+    total = {name: total.get(name, 0) + c for name, c in counts.items()}
+    _check_served(list(res[False][0].items()), 2, n, (1, 64, 16))
+    st_s, st_o = res[False][1], res[True][1]
+    if st_o["speculation_rollbacks"] < 1 \
+            or st_s["rounds_total"] != 2 * n:
+        raise AssertionError(f"{what}: rounds {st_s['rounds_total']}, "
+                             f"overlap stats {st_o}")
+    runs.append(_modes_record(res, policy="fifo", rtol=1e-9, slots=1))
+    emit(phase + "/rollback", **runs[-1])
+    idle = {mode: profile_rounds(drift, tgrid, n, k, s,
+                                 f"{phase}/profile-{mode}", per_call,
+                                 overlap=mode == "overlap", timed=10)
+            for mode in ("sync", "overlap")}
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, runs=len(runs),
+         profile=idle)
+    return total
+
+
 # kernel-name substrings of the port's kernels in profiler keys
 PORT_KERNEL_TAGS = ("step_rectify_kernel", "step_rectify_accept_kernel",
                     "rmsnorm_rows_kernel", "rmsnorm_sweep_kernel",
@@ -819,49 +1059,47 @@ def _check_profiled_launches(ours, per_round):
 
 
 def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
-                   rounds: int = 3):
+                   rounds: int = 3, overlap: bool = False,
+                   timed: int = 0):
     """Where a serving round's time goes, on a full grid after one warm
-    step (rtol 0: no lane drains), ``rounds`` steps timed without the
-    profiler (wall per round),
-    then ``rounds`` steps under ``torch.profiler`` after one warm-up step
-    (device time by kernel;
-    each backbone kernel's launches per round must equal ``per_call``, one
-    drift call a round). The idle share is 1 - device time / unprofiled
-    wall time."""
+    step (rtol 0: no lane drains), in the synchronous loop or, with
+    ``overlap``, the overlap loop (whose steps there all take the fast
+    path): ``timed`` steps (default ``rounds``) timed without the profiler
+    (wall per round, and the host's time per step before the final
+    synchronize: in the overlap loop its enqueue alone), then ``rounds``
+    steps under ``torch.profiler`` after one warm-up step (device time by
+    kernel; each backbone kernel's launches per round must equal
+    ``per_call``, one drift call a round). The idle share is 1 - device
+    time / unprofiled wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.serve import ContinuousEngine, Request
     engine = ContinuousEngine(drift, (1, 64, 16), n, k, tgrid, num_slots=s,
-                              rtol=0.0, use_kernel=True, device="cuda")
+                              rtol=0.0, use_kernel=True, overlap=overlap,
+                              device="cuda")
     for i in range(s):
         engine.submit(Request(rid=i, seed=300 + i))
     with torch.no_grad():
         engine.step()
         torch.cuda.synchronize()
+        timed = timed or rounds
         t0 = time.perf_counter()
-        for _ in range(rounds):
+        for _ in range(timed):
             engine.step()
+        host = (time.perf_counter() - t0) / timed  # before the device drains
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / rounds
-        # one round in a first window warms the tracer up (a launch at the
-        # very start of a window can go unrecorded)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            engine.step()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(rounds):
-                engine.step()
-            torch.cuda.synchronize()
-    events = _device_events(prof)
+        wall = (time.perf_counter() - t0) / timed
+        events = profiled(engine.step,
+                          lambda: [engine.step() for _ in range(rounds)])
     busy = sum(e.self_device_time_total for e in events) / 1e3 / rounds
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     ours = _port_kernels(events, rounds)
     accept = _accept_path_kernels(s * k, 64 * 16, s)
-    emit(phase, rounds=rounds, wall_ms_per_round=wall * 1e3,
-         device_ms_per_round=busy,
-         device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
-         port_kernels=ours, accept_path=accept,
+    rec = dict(rounds=rounds, timed_rounds=timed, overlap=overlap,
+               wall_ms_per_round=wall * 1e3,
+               host_ms_per_round=host * 1e3, device_ms_per_round=busy,
+               device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
+               host_syncs=engine.host_syncs)
+    emit(phase, **rec, port_kernels=ours, accept_path=accept,
          top=[{"name": e.key[:80], "calls_per_round": e.count / rounds,
                "ms_per_round": e.self_device_time_total / 1e3 / rounds}
               for e in top])
@@ -870,6 +1108,7 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
     if got != 1:
         raise AssertionError(f"profile: step_rectify_accept_kernel launched "
                              f"{got} times a round, want 1")
+    return rec
 
 
 def _accept_path_kernels(rows, m, p):
@@ -881,13 +1120,9 @@ def _accept_path_kernels(rows, m, p):
     from repro_torch.kernels.rectify.ops import step_rectify_accept
     gen = torch.Generator(device="cuda").manual_seed(6)
     lat, prev, dt, ds, fire = _rectify_operands(rows, m, p, gen)
-    ms, per_call, names = device_ms(lambda: step_rectify_accept(
-        *lat, prev, dt, ds, fire, use_kernel=True))
-    if per_call != 1 or not all("step_rectify_accept_kernel" in n
-                                for n in names):
-        raise AssertionError(f"accept path: {per_call} device kernels a "
-                             f"call ({names}), want one accept kernel")
-    return {"kernels_per_call": per_call, "device_ms": ms, "names": names}
+    return check_one_kernel("accept path", "step_rectify_accept_kernel",
+                            lambda: step_rectify_accept(
+                                *lat, prev, dt, ds, fire, use_kernel=True))
 
 
 def profile_static(drift, tgrid, n, k, s):
@@ -895,19 +1130,36 @@ def profile_static(drift, tgrid, n, k, s):
     the device time per launch of its rectify kernel, which the
     ``ContinuousEngine`` profile never runs."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ChordsEngine, Request
     static = ChordsEngine(drift, (64, 16), n, k, tgrid, max_batch=s,
                           rtol=0.05, use_kernel=True, device="cuda")
     for i in range(s):
         static.submit(Request(rid=i, seed=400 + i))
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        static.step()
-        torch.cuda.synchronize()
+    with torch.no_grad():
+        events = profiled(lambda: None, static.step)
     rounds = static.total_rounds()
-    emit("serve/profile-static", rounds=rounds,
-         port_kernels=_port_kernels(_device_events(prof), rounds))
+    ours = _port_kernels(events, rounds)
+    step = _step_path_kernels(s * k, 64 * 16)
+    emit("serve/profile-static", rounds=rounds, port_kernels=ours,
+         step_path=step)
+    got = ours.get("step_rectify_kernel", {}).get("launches_per_round")
+    if got != 1:
+        raise AssertionError(f"profile: step_rectify_kernel launched {got} "
+                             f"times a round, want 1")
+
+
+def _step_path_kernels(rows, m):
+    """The stream round's step call (``ops.step_rectify`` with a bool
+    ``fire``, as ``core/chords.py`` makes it) at the round's shape under
+    the profiler: it must launch exactly one device kernel, the step
+    kernel (no cast of ``fire``)."""
+    import torch
+    from repro_torch.kernels.rectify.ops import step_rectify
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lat, _, dt, ds, fire = _rectify_operands(rows, m, 1, gen)
+    return check_one_kernel("step path", "step_rectify_kernel",
+                            lambda: step_rectify(*lat, dt, ds, fire,
+                                                 use_kernel=True))
 
 
 def _check_served(done, count, n, shape):
@@ -939,6 +1191,8 @@ SOURCES = {
 }
 # the kernels each serving path runs (the hybrid's adds ssd_chunk)
 SERVE_KERNELS = {"serve": set(SOURCES) - {"ssd_chunk"},
+                 "overlap-serve": {"fused_step_rectify_accept", "rmsnorm",
+                                   "flash_attention"},
                  "hybrid-serve": set(SOURCES)}
 
 
@@ -973,23 +1227,29 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     launches = {name: 0 for name in SOURCES}
-    for arch, drift_phase, serve_phase in (
-            ("chords-dit-xl", "drift", "serve"),
-            ("zamba2-2.7b", "hybrid-drift", "hybrid-serve")):
+    # per arch: its drift phase, then its serving paths in order
+    for arch, drift_phase, paths in (
+            ("chords-dit-xl", "drift", (("serve", phase_serve),
+                                        ("overlap-serve",
+                                         phase_overlap_serve))),
+            ("zamba2-2.7b", "hybrid-drift", (("hybrid-serve",
+                                              phase_serve),))):
         if arch == "zamba2-2.7b" and "ssd" in phases:
             phase_ssd()
-        if drift_phase not in phases and serve_phase not in phases:
+        if not ({drift_phase} | {p for p, _ in paths}) & set(phases):
             continue
         torch.cuda.reset_peak_memory_stats()
         cfg, params = build_model(arch)
         if drift_phase in phases:
             phase_drift(cfg, params, drift_phase)
-        if serve_phase in phases:
-            counts = phase_serve(cfg, params, serve_phase)
-            missing = [n for n in SERVE_KERNELS[serve_phase] if not counts[n]]
+        for path, run in paths:
+            if path not in phases:
+                continue
+            counts = run(cfg, params, path)
+            missing = [n for n in SERVE_KERNELS[path] if not counts[n]]
             if missing:
                 raise AssertionError(f"kernels never launched on the "
-                                     f"{serve_phase} path: {missing}")
+                                     f"{path} path: {missing}")
             launches = {n: launches[n] + counts[n] for n in launches}
         del cfg, params
         torch.cuda.empty_cache()

@@ -16,8 +16,15 @@
 // at the card's memory rate.
 //
 // fused_step_rectify: one launch covers the whole grid (blockIdx.y = row,
-// blockIdx.x = tile of the row), each thread walks its tile with coalesced
-// loads.
+// blockIdx.x = column tile of the row). At the serving shape ([32, 1024],
+// ~1 MB) the kernel is bound by its launch and one round trip of loads, not
+// by its 0.0003 ms of bytes, so the plan (kernels/rectify/kernel.py
+// `step_plan`) cuts each row into tiles until rows x tiles fills the SMs
+// (128 blocks of 64 threads there) and each thread takes exactly one piece
+// of VEC columns: its six operand loads (float4 where the operands allow)
+// are all in flight before any arithmetic, so a block costs one round trip
+// of loads. `fire` is read as the bytes of a torch.bool tensor (no cast
+// kernel before the launch).
 //
 // fused_step_rectify_accept adds err_sq[r] = sum((out - prev)^2) and
 // out_sq[r] = sum(out*out). At the serving shape ([32, 1024]) it moves
@@ -38,8 +45,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kTile = kThreads * kPerThread;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
 __device__ __forceinline__ float step_rect(float x, float f, float xu,
@@ -50,24 +55,40 @@ __device__ __forceinline__ float step_rect(float x, float f, float xu,
   return __fadd_rn(x, __fadd_rn(delta, fire ? rect : 0.0f));
 }
 
-__global__ void step_rectify_kernel(
+// Thread t of block (bx, row) takes the VEC columns from (bx * blockDim.x +
+// t) * VEC of the row (VEC = 4 needs m % 4 == 0, so a piece never straddles
+// the row's end).
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) step_rectify_kernel(
     const float* __restrict__ x, const float* __restrict__ f,
     const float* __restrict__ xu, const float* __restrict__ fu,
     const float* __restrict__ xs, const float* __restrict__ fs,
     const float* __restrict__ dt, const float* __restrict__ ds,
     const uint8_t* __restrict__ fire, float* __restrict__ out, int64_t m) {
   const int64_t row = blockIdx.y;
+  const int64_t c =
+      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * (int64_t)VEC;
+  if (c >= m) return;
+  const int64_t j = row * m + c;
   const float d = dt[row], s = ds[row];
   const bool fr = fire[row] != 0;
-  const int64_t base = row * m;
-  const int64_t start = (int64_t)blockIdx.x * kTile + threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    int64_t col = start + (int64_t)i * kThreads;
-    if (col < m) {
-      int64_t j = base + col;
-      out[j] = step_rect(x[j], f[j], xu[j], fu[j], xs[j], fs[j], d, s, fr);
-    }
+  if (VEC == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(x + j);
+    const float4 b = *reinterpret_cast<const float4*>(f + j);
+    const float4 g = *reinterpret_cast<const float4*>(xu + j);
+    const float4 h = *reinterpret_cast<const float4*>(fu + j);
+    const float4 p = *reinterpret_cast<const float4*>(xs + j);
+    const float4 q = *reinterpret_cast<const float4*>(fs + j);
+    float4 o;
+    o.x = step_rect(a.x, b.x, g.x, h.x, p.x, q.x, d, s, fr);
+    o.y = step_rect(a.y, b.y, g.y, h.y, p.y, q.y, d, s, fr);
+    o.z = step_rect(a.z, b.z, g.z, h.z, p.z, q.z, d, s, fr);
+    o.w = step_rect(a.w, b.w, g.w, h.w, p.w, q.w, d, s, fr);
+    *reinterpret_cast<float4*>(out + j) = o;
+  } else {
+    const float a = x[j], b = f[j], g = xu[j], h = fu[j], p = xs[j],
+                q = fs[j];
+    out[j] = step_rect(a, b, g, h, p, q, d, s, fr);
   }
 }
 
@@ -180,22 +201,46 @@ __global__ void __launch_bounds__(kThreads) step_rectify_accept_kernel(
   }
 }
 
-int64_t num_tiles(int64_t m) { return (m + kTile - 1) / kTile; }
-
 }  // namespace
 
 extern "C" {
 
+// One launch over [rows, m]: blocks of `threads` threads, `tiles` =
+// ceil(m / (threads * vec)) of them per row, each thread one piece of `vec`
+// columns. `config` packs the plan of kernels/rectify/kernel.py
+// `step_plan`: bits 0-11 threads, bits 12-15 vec (4: float4 loads, m % 4
+// == 0 and the seven latent pointers 16-byte aligned; or 1). `fire` is read
+// as bytes holding 0 or 1 (a torch.bool tensor).
 int fused_step_rectify_f32(const void* x, const void* f, const void* xu,
                            const void* fu, const void* xs, const void* fs,
                            const void* dt, const void* ds, const void* fire,
-                           void* out, int64_t rows, int64_t m, void* stream) {
+                           void* out, int64_t rows, int64_t m, int config,
+                           void* stream) {
   if (rows <= 0 || m <= 0) return 0;
-  dim3 grid((unsigned)num_tiles(m), (unsigned)rows);
-  step_rectify_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
-      (const float*)xs, (const float*)fs, (const float*)dt, (const float*)ds,
-      (const uint8_t*)fire, (float*)out, m);
+  const int threads = config & 4095, vec = (config >> 12) & 15;
+  if (rows > 65535 || threads < 32 || threads > kThreads || threads % 32 ||
+      (vec != 4 && vec != 1))
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (m % 4 ||
+                   ((uintptr_t)x | (uintptr_t)f | (uintptr_t)xu |
+                    (uintptr_t)fu | (uintptr_t)xs | (uintptr_t)fs |
+                    (uintptr_t)out) % 16))
+    return (int)cudaErrorMisalignedAddress;
+  const int64_t tile = (int64_t)threads * vec;
+  const int64_t tiles = (m + tile - 1) / tile;
+  if (tiles > 2147483647) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)rows);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec == 4)
+    step_rectify_kernel<4><<<grid, threads, 0, st>>>(
+        (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
+        (const float*)xs, (const float*)fs, (const float*)dt,
+        (const float*)ds, (const uint8_t*)fire, (float*)out, m);
+  else
+    step_rectify_kernel<1><<<grid, threads, 0, st>>>(
+        (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
+        (const float*)xs, (const float*)fs, (const float*)dt,
+        (const float*)ds, (const uint8_t*)fire, (float*)out, m);
   return (int)cudaGetLastError();
 }
 

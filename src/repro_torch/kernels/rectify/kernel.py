@@ -4,14 +4,17 @@ Replaces the Pallas TPU kernels ``fused_step_rectify`` and
 ``fused_step_rectify_accept`` (``src/repro/kernels/rectify/kernel.py``);
 the source is ``src/repro_torch/csrc/rectify.cu``. Bound on the card: bytes
 (six or seven f32 latent reads and one write per element), so one launch
-covers the whole [S*K, M] grid with per-row scalars. The accept variant
-reduces its sums in the same launch: one thread block cluster per row
-(:func:`accept_plan` picks the cluster size and each block's span of
-columns), the block partials added in rank order through distributed
-shared memory: deterministic, no atomics, no scratch in device memory.
-At the serving shape that kernel is bound by launch latency, so its
-wrapper makes two allocations and one ctypes call, reads ``fire`` as the
-bool tensor's bytes and passes pointers and the stream as plain ints.
+covers the whole [S*K, M] grid with per-row scalars. At the serving shape
+(~1 MB) both kernels are bound by launch latency and one round trip of
+loads instead, so their plans spread a row over enough blocks to fill the
+SMs: :func:`step_plan` cuts each row into column tiles of one piece per
+thread; the accept variant (:func:`accept_plan`) takes one thread block
+cluster per row and reduces its sums in the same launch, the block
+partials added in rank order through distributed shared memory:
+deterministic, no atomics, no scratch in device memory. Both wrappers make
+one allocation per output, one ctypes call with pointers, the plan (one
+packed word) and the stream as plain ints, and read ``fire`` as the bool
+tensor's bytes.
 
 These wrappers take CUDA tensors only; ``ops.py`` picks the plain version
 for CPU tensors. Each counts its launches in ``<wrapper>.launches``.
@@ -31,23 +34,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 MAX_CLUSTER = 8      # the portable thread block cluster size
-TARGET_BLOCKS = 128  # rows x cluster should reach this (132 SMs on an H100)
+TARGET_BLOCKS = 128  # blocks a launch should reach (132 SMs on an H100)
 MAX_THREADS = 256    # threads of a block (csrc kThreads)
 
 
 def _lib():
-    lib = build.load("rectify")
-    if not getattr(lib, "_typed", False):
-        lib.fused_step_rectify_f32.argtypes = [_P] * 10 + [_I64, _I64, _P]
-        lib.fused_step_rectify_f32.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    return build.load("rectify")
+
+
+@functools.cache
+def _step_fn():
+    """The typed C entry point of the step kernel."""
+    fn = _lib().fused_step_rectify_f32
+    fn.argtypes = [_P] * 10 + [_I64, _I64, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
 def _accept_fn():
     """The typed C entry point of the accept kernel."""
-    fn = build.load("rectify").fused_step_rectify_accept_f32
+    fn = _lib().fused_step_rectify_accept_f32
     fn.argtypes = [_P] * 12 + [_I64] * 4 + [_I, _P]
     fn.restype = ctypes.c_int
     return fn
@@ -82,18 +89,51 @@ def _check_operands(lat, scal, fire):
     return dev, rows, shape[1]
 
 
+class StepPlan(NamedTuple):
+    """One launch of the step kernel over [rows, m]: blocks of ``threads``
+    threads, ceil(m / (threads * vec)) of them per row, thread t of block
+    b taking the ``vec`` columns from (b * threads + t) * vec."""
+    threads: int
+    vec: int
+
+    @property
+    def word(self) -> int:
+        """The plan as the C launcher reads it: bits 0-11 threads, bits
+        12-15 vec."""
+        return self.threads | self.vec << 12
+
+
+@functools.lru_cache(maxsize=256)
+def step_plan(rows: int, m: int, vec_ok: bool) -> StepPlan:
+    """The largest power-of-two block (32 to ``MAX_THREADS`` threads) that
+    still brings rows x tiles to ``TARGET_BLOCKS``, no larger than the
+    row's pieces need; ``vec_ok``: m % 4 == 0 and the operands are 16-byte
+    aligned (float4 pieces), else one column a piece."""
+    vec = 4 if vec_ok and m % 4 == 0 else 1
+    pieces = -(-m // vec)
+    threads = MAX_THREADS
+    while threads > 32 and (threads // 2 >= pieces
+                            or rows * -(-pieces // threads) < TARGET_BLOCKS):
+        threads //= 2
+    return StepPlan(threads, vec)
+
+
 def fused_step_rectify(x, f, x_up, f_up, x_snap, f_snap, dt, dsnap, fire):
     """[R, M] latents, [R] dt/dsnap/fire -> out [R, M] (CUDA)."""
     lat = (x, f, x_up, f_up, x_snap, f_snap)
     dev, rows, m = _check_operands(lat, (dt, dsnap), fire)
-    fire_u8 = fire.to(torch.uint8).contiguous()
+    if not fire.is_contiguous():
+        fire = fire.contiguous()
+    ptrs = [t.data_ptr() for t in lat]
     out = torch.empty_like(x)
-    lib = _lib()
-    err = lib.fused_step_rectify_f32(
-        *map(build.ptr, lat), build.ptr(dt), build.ptr(dsnap),
-        build.ptr(fire_u8), build.ptr(out), rows, m,
-        build.stream_handle(dev))
-    build.check(lib, "rectify", err)
+    op = out.data_ptr()
+    aligned = (op | ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4]
+               | ptrs[5]) % 16 == 0
+    err = _step_fn()(*ptrs, dt.data_ptr(), dsnap.data_ptr(), fire.data_ptr(),
+                     op, rows, m, step_plan(rows, m, aligned).word,
+                     build.stream_handle(dev))
+    if err:
+        build.check(_lib(), "rectify", err)
     fused_step_rectify.launches += 1
     return out
 

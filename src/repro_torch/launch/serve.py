@@ -7,18 +7,22 @@ hybrid denoiser (Mamba2 layers and a shared attention block) instead.
 ``--static`` serves the same drift with the padded static-batch engine.
 ``--use-kernels`` routes the backbone's RMSNorm, attention and SSD chunk
 block and the fused step+rectify(+accept) round through the port's CUDA
-kernels (their plain versions on ``--device cpu``).
+kernels (their plain versions on ``--device cpu``). ``--overlap`` serves
+with the double-buffered speculative host loop
+(``ContinuousEngine(overlap=True)``): the next round is enqueued before
+the previous round's done flags are read back.
 
   python -m repro_torch.launch.serve --steps 50 --cores 8 --slots 4 \
       --use-kernels
   python -m repro_torch.launch.serve --arch zamba2-2.7b --use-kernels
+  python -m repro_torch.launch.serve --use-kernels --overlap
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --reduced --device cpu
 
-Flags of the reference not honored yet (``--overlap``, ``--min-slots``,
-``--max-slots``, ``--device-rounds``, ``--lane-mode``, ``--trace-out``)
-belong to ROADMAP.md queue 1 items 5-9.
+Flags of the reference not honored yet (``--min-slots``, ``--max-slots``,
+``--device-rounds``, ``--lane-mode``, ``--trace-out``) belong to
+ROADMAP.md queue 1 items 6-9.
 """
 from __future__ import annotations
 
@@ -53,6 +57,9 @@ def main(argv=None):
     ap.add_argument("--deadline-rounds", type=int, default=None,
                     help="per-request deadline in lockstep rounds from "
                          "submission (default: no deadline)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="async double-buffered host loop: speculate the "
+                         "next round's admissions, verify one round late")
     ap.add_argument("--use-kernels", action="store_true",
                     help="route RMSNorm, attention, the SSD chunk block "
                          "and the fused CHORDS round through the port's "
@@ -101,7 +108,8 @@ def main(argv=None):
             drift, latent_shape=(1, args.seq, args.latent_dim),
             n_steps=args.steps, num_cores=args.cores, tgrid=tgrid,
             num_slots=args.slots, rtol=args.rtol, policy=args.policy,
-            use_kernel=args.use_kernels or None, device=dev)
+            overlap=args.overlap, use_kernel=args.use_kernels or None,
+            device=dev)
         for i in range(args.requests):
             engine.submit(Request(rid=i, seed=100 + i,
                                   deadline_rounds=args.deadline_rounds))

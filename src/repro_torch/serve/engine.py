@@ -8,20 +8,25 @@ the static-batch server around it: partial batches are padded to
 asks the scheduling policy which queued requests to admit (and, for
 ``edf-preempt``, which lanes to evict), runs one lockstep round for every
 live slot, reads the done flags back in one transfer and drains finished
-slots.
+slots. With ``overlap=True`` the same contract is served by the
+double-buffered speculative host loop: the next round is enqueued before
+the previous round's flags are read, and while no lane is due to finish
+nothing is read back at all.
 
 Noise: a :class:`Request` carries ``seed`` — its init noise is drawn on the
 engine's device from ``torch.Generator(device).manual_seed(seed)`` — or an
 explicit ``x0``; the parity tests inject the JAX package's draws through
 ``x0`` (``jax.random`` streams cannot be reproduced in torch).
 
-Ported: the synchronous engine with FIFO / EDF / EDF-preempt. Not yet
-(each raises ``NotImplementedError``): ``overlap=True`` (ROADMAP.md queue
-1 item 5), elastic ``min_slots``/``max_slots`` (item 6), ``lane_profile``
-(item 7), ``max_rounds_on_device > 1`` (item 8), ``write_trace`` (item 9).
+Ported: the synchronous and the overlap engine (``max_rounds_on_device``
+1) with FIFO / EDF / EDF-preempt. Not yet (each raises
+``NotImplementedError``): elastic ``min_slots``/``max_slots`` (ROADMAP.md
+queue 1 item 6), ``lane_profile`` (item 7), ``max_rounds_on_device > 1``
+(item 8), ``write_trace`` (item 9).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -79,14 +84,25 @@ def request_noise(req: Request, latent_shape, device,
     a standard normal draw from ``torch.Generator(device)`` seeded with
     ``req.seed``."""
     if req.x0 is not None:
-        x0 = torch.as_tensor(req.x0).to(device=device, dtype=dtype)
+        x0 = torch.as_tensor(req.x0)
         if tuple(x0.shape) != tuple(latent_shape):
             raise ValueError(f"request {req.rid}: x0 shape "
                              f"{tuple(x0.shape)} != latent {latent_shape}")
-        return x0
+        return _to_device(x0.to(dtype), device)
     gen = torch.Generator(device=device).manual_seed(int(req.seed))
     return torch.randn(tuple(latent_shape), generator=gen, device=device,
                        dtype=dtype)
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device`` without blocking the host: a CUDA copy
+    is staged through pinned memory and enqueued on the current stream
+    (the caching host allocator keeps the staging block until the copy has
+    run)."""
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _resolve_executor(drift, tgrid, n_steps, executor, use_kernel,
@@ -200,9 +216,27 @@ class ChordsEngine:
         return int(sum(s["rounds"] for s in self.stats))
 
 
+@dataclasses.dataclass
+class _DecisionUndo:
+    """Host-side inverse of one speculatively applied :class:`Decision`.
+
+    The device side of a rollback is the engine reinstating the retained
+    pre-decision ``SlotState`` (the programs are functional: the admit and
+    round programs allocate new tensors and never write their inputs, so
+    those stay readable while the engine holds them). This record undoes
+    the *host* effects: queue membership, preemption credit and counters,
+    and the per-slot mirrors.
+    """
+
+    admissions: List[tuple]          # (slot, item) admitted -> re-queue
+    evictions: List[tuple]           # (slot, item, ran) evicted -> restore
+    prior: Dict[int, tuple]          # slot -> mirror tuple before the decision
+    preempted_new: List[int]         # rids first marked preempted here
+
+
 class ContinuousEngine:
     """Continuous-batching CHORDS runtime over a fixed ``[S, K, ...]`` slot
-    grid (synchronous host loop).
+    grid.
 
     Every ``step()``: (1) the scheduling ``policy`` ('fifo' default, 'edf',
     'edf-preempt' or a Policy instance) decides admissions and evictions,
@@ -210,8 +244,16 @@ class ContinuousEngine:
     round for every live slot; (3) ``done``/``rounds_used``/``chosen`` come
     back in ONE device->host transfer (``host_syncs`` counts these) and
     finished slots drain, their results gathered in one more transfer.
-    ``stats()`` has the reference's keys; the features not ported yet
-    report their idle values.
+
+    ``overlap=True`` serves the same contract with the double-buffered
+    speculative loop (:meth:`_step_overlap`); its samples, rounds and
+    latencies are bitwise those of the synchronous loop whenever its
+    speculation is confirmed, and after every rollback too.
+    ``guard_syncs=True`` (CUDA only, a debug check) runs the host's work
+    between speculating and verifying, and the fast path's dispatch, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing call
+    there raises. ``stats()`` has the reference's keys; the features not
+    ported yet report their idle values.
     """
 
     def __init__(self, drift: Callable, latent_shape: tuple, n_steps: int,
@@ -226,10 +268,8 @@ class ContinuousEngine:
                  use_kernel: Optional[bool] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
+                 guard_syncs: bool = False,
                  device="cuda"):
-        if overlap:
-            raise _not_ported("ContinuousEngine(overlap=True)", 5,
-                              "the overlap engine")
         if (min_slots not in (None, num_slots)
                 or max_slots not in (None, num_slots)):
             raise _not_ported("elastic min_slots/max_slots", 6,
@@ -242,6 +282,8 @@ class ContinuousEngine:
         self.k = num_cores
         self.rtol = rtol
         self.priority_speedup = priority_speedup
+        self.overlap = bool(overlap)
+        self.guard_syncs = bool(guard_syncs)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.policy = get_policy(policy)
@@ -264,9 +306,24 @@ class ContinuousEngine:
         self._slot_iseq: List[Optional[list]] = [None] * s
         self._slot_rtol = np.full((s,), self.rtol, np.float32)  # host mirror
         self._admit_round: List[int] = [0] * s
+        # cost-model prediction of the absolute round each lane accepts:
+        # the overlap loop's speculation horizon (None = slot free)
+        self._pred_done: List[Optional[int]] = [None] * s
+        # wall clock of each lane's committed admission: the start of its
+        # request/compute span on the per-slot trace track
         self._admit_wall: List[float] = [0.0] * s
+        # the overlap loop's readback lands in pinned host buffers, one set
+        # per grid: flags [3, S] (done, rounds_used, chosen) and the due
+        # lanes' results, copied without blocking the host
+        self._rb_flags = self._rb_result = None
+        if self.overlap and self.device.type == "cuda":
+            self._rb_flags = torch.empty((3, s), dtype=torch.int32,
+                                         pin_memory=True)
+            self._rb_result = torch.empty(
+                tuple(self.state.result.shape),
+                dtype=self.state.result.dtype, pin_memory=True)
         self.queue = AdmissionQueue(aging_rounds=aging_rounds)
-        self.round_count = 0
+        self.round_count = 0  # plain attribute: trace drivers write it
         self.preempted_rids: set = set()
         m = self.metrics
         m.gauge("serve.slots").set(float(s))
@@ -279,11 +336,16 @@ class ContinuousEngine:
         self._c_slot_rounds = m.counter("serve.occupancy.slot_rounds")
         self._c_wasted = m.counter("serve.occupancy.wasted_rounds")
         self._c_served = m.counter("serve.served")
+        self._c_spec = m.counter("serve.spec.count")
+        self._c_spec_confirms = m.counter("serve.spec.confirms")
+        self._c_spec_rollbacks = m.counter("serve.spec.rollbacks")
+        self._c_spec_wasted = m.counter("serve.spec.rounds_wasted")
+        self._c_drain_lag = m.counter("serve.drain_lag_rounds")
         self._c_dispatches = m.counter("serve.dispatches")
         self._h_latency = m.histogram("serve.latency_rounds")
         self._h_speedup = m.histogram("serve.speedup")
         self._h_gap = m.histogram("serve.round_gap_s")
-        m.gauge("serve.overlap").set(0.0)
+        m.gauge("serve.overlap").set(float(self.overlap))
         self._last_dispatch_done: Optional[float] = None
         self._submit_wall: Dict[int, float] = {}
         if self.tracer.enabled:
@@ -328,14 +390,31 @@ class ContinuousEngine:
                 invested=done_r + item.rounds_credit))
         return lanes
 
-    def _apply_decision(self, dec: Decision) -> None:
-        """Apply a policy decision: evictions (re-queued with their rounds
-        credited), then admissions through the masked admit program. The
-        admitted requests' noise is drawn on the device."""
-        now = self.round_count
+    def _apply_decision(self, dec: Decision, now: Optional[int] = None,
+                        record_undo: bool = False
+                        ) -> Optional[_DecisionUndo]:
+        """Apply a policy decision (evictions, re-queued with their rounds
+        credited, then admissions through the masked admit program) at
+        round ``now`` (default: the current round). The admitted requests'
+        noise is drawn on the device; the slot mask, init sequences and
+        tolerances go up in one copy staged through pinned memory, so an
+        admission never blocks the host.
+
+        ``record_undo=True`` returns a :class:`_DecisionUndo` that reverses
+        every host-side effect (the overlap loop applies decisions
+        speculatively) and defers the decision's trace events to the
+        commit point."""
+        now = self.round_count if now is None else now
         adm_slots = {a.slot for a in dec.admissions}
         if not all(s in adm_slots for s in dec.evictions):
             raise RuntimeError(f"eviction without admission: {dec}")
+        undo = _DecisionUndo([], [], {}, []) if record_undo else None
+        if record_undo:
+            for slot in set(dec.evictions) | adm_slots:
+                undo.prior[slot] = (
+                    self._slot_item[slot], self._slot_iseq[slot],
+                    float(self._slot_rtol[slot]), self._admit_round[slot],
+                    self._pred_done[slot], self._admit_wall[slot])
         for slot in dec.evictions:
             item = self._slot_item[slot]
             ran = now - self._admit_round[slot]
@@ -343,37 +422,59 @@ class ContinuousEngine:
             item.preemptions += 1
             self._c_preempt.inc()
             self._c_preempt_wasted.inc(ran)
-            self._trace_evict(slot, item, ran, now)
+            if record_undo:
+                undo.evictions.append((slot, item, ran))
+                if item.payload.rid not in self.preempted_rids:
+                    undo.preempted_new.append(item.payload.rid)
+            else:
+                self._trace_evict(slot, item, ran, now,
+                                  self._admit_wall[slot])
             self.preempted_rids.add(item.payload.rid)
             self._slot_item[slot] = None
+            self._pred_done[slot] = None
             self.queue.push(item)  # submit round/deadline/credit preserved
         if not dec.admissions:
-            return
-        mask = np.zeros(self.s, bool)
-        i_arr = np.zeros((self.s, self.k), np.int32)
+            return undo
+        # one host array: mask, the init sequences and the f32 tolerances'
+        # bits, as int32 columns [S, 1 + K + 1]
+        host = np.zeros((self.s, self.k + 2), np.int32)
         x0 = torch.zeros((self.s,) + self.latent_shape, device=self.device)
         wall = self.tracer.now()
         for a in dec.admissions:
-            mask[a.slot] = True
-            i_arr[a.slot] = a.i_seq
+            host[a.slot, 0] = 1
+            host[a.slot, 1:self.k + 1] = a.i_seq
             self._slot_rtol[a.slot] = a.item.rtol
             self._slot_item[a.slot] = a.item
             self._slot_iseq[a.slot] = list(a.i_seq)
             self._admit_round[a.slot] = now
+            self._admit_wall[a.slot] = wall
+            self._pred_done[a.slot] = self.cost.predict_done_round(
+                a.i_seq, a.item.rtol, now)
             x0[a.slot] = request_noise(a.item.payload, self.latent_shape,
                                        self.device)
-            self._trace_admit(a.slot, a.item, now, wall)
+            if record_undo:
+                undo.admissions.append((a.slot, a.item))
+            else:
+                self._trace_admit(a.slot, a.item, now, wall)
+        host[:, self.k + 1] = self._slot_rtol.view(np.int32)
         t0 = self.tracer.now()
-        dev = self.device
+        dev = _to_device(torch.from_numpy(host), self.device)
         self.state = self._prog.admit(
-            self.state, torch.from_numpy(mask).to(dev), x0,
-            torch.from_numpy(i_arr).to(dev),
-            torch.from_numpy(self._slot_rtol).to(dev))
+            self.state, dev[:, 0] != 0, x0, dev[:, 1:self.k + 1],
+            dev[:, self.k + 1].view(torch.float32))
         self.tracer.span("dispatch/admit", t0, round_idx=now,
                          lanes=len(dec.admissions))
+        return undo
+
+    # -- commit-point trace emission ------------------------------------------
+    # Speculatively applied decisions emit nothing (record_undo=True); their
+    # events are emitted at confirmation (:meth:`_trace_commit_undo`) or by
+    # the committed re-decide after a rollback, so a rolled-back admission
+    # never leaves lifecycle events in the trace.
 
     def _trace_admit(self, slot: int, item: QueueItem, now: int,
                      wall: float) -> None:
+        """Close the request's queued span and (re)open its residency."""
         self._admit_wall[slot] = wall
         if not self.tracer.enabled:
             return
@@ -384,22 +485,64 @@ class ContinuousEngine:
                              track=("requests", rid), t1=wall, rid=rid,
                              slot=slot)
 
-    def _trace_evict(self, slot: int, item: QueueItem, ran: int,
-                     now: int) -> None:
+    def _trace_evict(self, slot: int, item: QueueItem, ran: int, now: int,
+                     admit_wall: float) -> None:
+        """A committed eviction ends the residency span and re-opens the
+        request's queued span (evict-requeue)."""
         if not self.tracer.enabled:
             return
         rid = item.payload.rid
         wall = self.tracer.now()
-        self.tracer.span("request/compute", self._admit_wall[slot],
-                         round_idx=now, track=("slots", slot), t1=wall,
-                         rid=rid, preempted=True, rounds_ran=ran)
+        self.tracer.span("request/compute", admit_wall, round_idx=now,
+                         track=("slots", slot), t1=wall, rid=rid,
+                         preempted=True, rounds_ran=ran)
         self.tracer.instant("preempt", round_idx=now, rid=rid, slot=slot,
                             rounds_ran=ran)
         self._submit_wall[rid] = wall
 
+    def _trace_commit_undo(self, undo: Optional[_DecisionUndo],
+                           now: int) -> None:
+        """Emit the lifecycle events of a speculative decision the verify
+        readback just confirmed, after the due drains (so the replaced
+        residents' spans close before the new residents' open)."""
+        if undo is None or not self.tracer.enabled:
+            return
+        for slot, item, ran in undo.evictions:
+            self._trace_evict(slot, item, ran, now, undo.prior[slot][5])
+        wall = self.tracer.now()
+        for slot, item in undo.admissions:
+            self._trace_admit(slot, item, now, wall)
+
+    def _undo_decision(self, undo: _DecisionUndo) -> None:
+        """Reverse the host side of a speculatively applied decision (the
+        device side is the caller reinstating the retained pre-decision
+        state). Queue order is computed from item keys at every pop, so the
+        push/remove round trips cannot perturb the survivors' order."""
+        for _slot, item in undo.admissions:
+            self.queue.push(item)  # popped by policy.decide: re-enqueue
+        for _slot, item, ran in undo.evictions:
+            self.queue.remove(item)
+            item.rounds_credit -= ran
+            item.preemptions -= 1
+            self._c_preempt.inc(-1)  # negative inc: speculative-undo path
+            self._c_preempt_wasted.inc(-ran)
+        for rid in undo.preempted_new:
+            self.preempted_rids.discard(rid)
+        for slot, prior in undo.prior.items():
+            (self._slot_item[slot], self._slot_iseq[slot], rtol,
+             self._admit_round[slot], self._pred_done[slot],
+             self._admit_wall[slot]) = prior
+            self._slot_rtol[slot] = rtol
+
+    # -- round-gap timer ------------------------------------------------------
+
     def _mark_dispatch(self, live: int) -> Tuple[float, object]:
-        """Record the host gap since the previous dispatch returned (the
-        time a busy grid waited for the host) and open a profiler range."""
+        """Called just before a round is enqueued: records the host gap
+        since the previous dispatch returned and opens a profiler range.
+        PyTorch enqueues kernels asynchronously, so this times the host's
+        enqueue, not the device's completion: it is the time a busy grid
+        waited for the host only when the device had run dry. The device
+        idle share comes from the profiler, not from this timer."""
         t = time.monotonic()
         if self._last_dispatch_done is not None:
             self._h_gap.observe(max(0.0, t - self._last_dispatch_done))
@@ -417,10 +560,22 @@ class ContinuousEngine:
             self.tracer.counter("occupancy", live)
             self.tracer.counter("queue_depth", len(self.queue))
 
+    def _dispatch(self, live: int):
+        """Enqueue one lockstep round on the current state; returns the new
+        state (the old one stays readable)."""
+        t0, rng = self._mark_dispatch(live)
+        state = self._prog.round(self.state)
+        self._dispatch_done(t0, rng, live)
+        return state
+
     def _finish_lane(self, item: QueueItem, i_seq, ru: int, chosen_k: int,
-                     sample, acc_round: int, slot: int = -1
-                     ) -> tuple[int, SampleOut]:
-        """Account one drained lane (latency is measured from submission)."""
+                     sample, acc_round: int, slot: int = -1,
+                     admit_wall: float = 0.0) -> tuple[int, SampleOut]:
+        """Account one drained lane. ``acc_round`` is the absolute engine
+        round at which the accept fired: ``round_count`` at the drain in
+        the synchronous loop, ``admit_round + rounds_used`` in the overlap
+        loop (the same number, whenever the host discovers the accept).
+        Latency is measured from submission."""
         latency = acc_round - item.submit_round
         missed = False
         if math.isfinite(item.deadline_round):
@@ -437,7 +592,7 @@ class ContinuousEngine:
         self._h_speedup.observe(res.speedup)
         if self.tracer.enabled:
             rid = item.payload.rid
-            self.tracer.span("request/compute", self._admit_wall[slot],
+            self.tracer.span("request/compute", admit_wall,
                              round_idx=acc_round, track=("slots", slot),
                              rid=rid, rounds_used=ru, core=chosen_k,
                              latency_rounds=latency)
@@ -452,11 +607,19 @@ class ContinuousEngine:
     def step(self, max_rounds_on_device: int = 1
              ) -> list[tuple[int, SampleOut]]:
         """Policy decision -> one lockstep round -> drain. Returns finished
-        requests as [(rid, SampleOut)]."""
+        requests as [(rid, SampleOut)]; with ``overlap=True`` through the
+        speculative loop (:meth:`_step_overlap`)."""
         if int(max_rounds_on_device) > 1:
             raise _not_ported("max_rounds_on_device > 1", 8,
                               "the multi-round device loop")
+        if self.overlap:
+            return self._step_overlap()
         return self._step_sync()
+
+    def _count_round(self, live_ct: int) -> None:
+        self._c_live.inc(live_ct)
+        self._c_slot_rounds.inc(self.s)
+        self._c_wasted.inc(self.s - live_ct)
 
     def _step_sync(self) -> list[tuple[int, SampleOut]]:
         free = [i for i, it in enumerate(self._slot_item) if it is None]
@@ -470,9 +633,7 @@ class ContinuousEngine:
             return []
 
         live_ct = sum(it is not None for it in self._slot_item)
-        t0, rng = self._mark_dispatch(live_ct)
-        self.state = self._prog.round(self.state)
-        self._dispatch_done(t0, rng, live_ct)
+        self.state = self._dispatch(live_ct)
         t0 = self.tracer.now()
         flags = torch.stack((self.state.done.to(torch.int32),
                              self.state.rounds_used,
@@ -482,9 +643,7 @@ class ContinuousEngine:
                          live=live_ct)
         self._c_host_syncs.inc()
         self.round_count += 1
-        self._c_live.inc(live_ct)
-        self._c_slot_rounds.inc(self.s)
-        self._c_wasted.inc(self.s - live_ct)
+        self._count_round(live_ct)
 
         out: list[tuple[int, SampleOut]] = []
         drain = [slot for slot in range(self.s)
@@ -498,11 +657,233 @@ class ContinuousEngine:
             out.append(self._finish_lane(
                 item, self._slot_iseq[slot], int(rounds_used[slot]),
                 int(chosen[slot]), results[j], acc_round=self.round_count,
-                slot=slot))
+                slot=slot, admit_wall=self._admit_wall[slot]))
             self._slot_item[slot] = None  # slot is free; done flag stays
-            # until the next admission clears it (the lane is frozen)
+            self._pred_done[slot] = None  # until the next admission clears
+            # it (the lane is frozen)
         if not self.has_inflight:
             self._last_dispatch_done = None
+        return out
+
+    # -- the overlap loop: speculate, dispatch, verify ------------------------
+
+    @contextlib.contextmanager
+    def _no_sync(self):
+        """With ``guard_syncs`` on CUDA, raise on any synchronizing CUDA
+        call inside the block."""
+        if not (self.guard_syncs and self.device.type == "cuda"):
+            yield
+            return
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def _enqueue_readback(self, st, due: List[int]):
+        """Enqueue the verify readback of ``st``: its flags and the due
+        lanes' results. On CUDA this must be enqueued BEFORE the next
+        round: on one stream a copy issued after round R+1 would wait for
+        R+1 and turn the overlap back into the synchronous loop. So the
+        flags and the gathered results are copied with ``non_blocking``
+        into this grid's pinned buffers and an event is recorded after
+        them; :meth:`_collect_readback` waits for that event alone."""
+        flags = torch.stack((st.done.to(torch.int32), st.rounds_used,
+                             st.chosen))
+        if self.device.type != "cuda":
+            return flags.numpy(), st.result[torch.as_tensor(due)]
+        idx = _to_device(torch.tensor(due, dtype=torch.int64), self.device)
+        self._rb_flags.copy_(flags, non_blocking=True)
+        self._rb_result[:len(due)].copy_(st.result.index_select(0, idx),
+                                         non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return event, len(due)
+
+    def _collect_readback(self, pending):
+        """Block until the readback has landed (the ONE host sync of an
+        event step); returns (done, rounds_used, chosen, due results) on
+        the host."""
+        if self.device.type != "cuda":
+            flags, res = pending
+        else:
+            event, n = pending
+            event.synchronize()
+            flags = self._rb_flags.numpy().copy()
+            res = self._rb_result[:n].clone()  # the buffer is reused
+        return flags[0].astype(bool), flags[1], flags[2], res
+
+    def _step_overlap(self) -> list[tuple[int, SampleOut]]:
+        """One overlap step: speculate -> dispatch -> verify -> reconcile.
+
+        Occupied lanes are classed by the cost model's predicted accept
+        round (``_pred_done``). While no lane is *due*, the next round is
+        enqueued with NO readback (the fast path). When a lane is due, the
+        host enqueues the readback of the state in flight, decides the
+        next round against the *predicted* post-drain state (due lanes
+        presumed finished), applies the decision speculatively, enqueues
+        the next round, and only THEN waits for the readback:
+
+        * prediction held: the round in flight is the one the synchronous
+          loop would have issued (confirmed; with ``rtol=0`` predictions
+          are exact and every step confirms);
+        * prediction missed (a speculative admission targeted a lane still
+          running): reinstate the retained pre-decision state, undo the
+          host mirrors, re-decide against the true state and re-dispatch:
+          one discarded device round, counted in
+          ``speculation_rollbacks`` / ``speculated_rounds_wasted``.
+
+        Drained results come from the retained pre-round state, and their
+        latency/deadline accounting uses ``admit_round + rounds_used``:
+        the synchronous loop's numbers, whenever the host discovers the
+        accept.
+        """
+        now = self.round_count
+        occupied = [i for i, it in enumerate(self._slot_item)
+                    if it is not None]
+        free = [i for i, it in enumerate(self._slot_item) if it is None]
+        due = [s for s in occupied if self._pred_done[s] is None
+               or self._pred_done[s] <= now]
+        if not occupied and not len(self.queue):
+            self._last_dispatch_done = None
+            return []
+        want_decide = bool(len(self.queue)) and \
+            bool(free or due or self.policy.preemptive)
+
+        if not due and not want_decide:
+            # fast path: nothing can finish and nothing to decide; read
+            # NOTHING back
+            with self._no_sync():
+                self.state = self._dispatch(len(occupied))
+            self.round_count = now + 1
+            self._count_round(len(occupied))
+            return []
+
+        # -- event step: speculate + dispatch ahead of the verify ----------
+        need_verify = bool(due)
+        prev = self.state
+        # drain metadata BEFORE the decision may overwrite it (a confirmed
+        # speculative admission re-targets the due slot in the same step)
+        due_meta = {s: (self._slot_item[s], self._slot_iseq[s],
+                        self._admit_round[s], self._admit_wall[s])
+                    for s in due}
+        dec, undo, spec_admits = Decision(), None, []
+        dispatched = None
+        with self._no_sync():
+            pending = self._enqueue_readback(prev, due) if need_verify \
+                else None
+            if want_decide:
+                view = EngineView(
+                    now=now, queue=self.queue,
+                    # predicted post-drain state: due lanes presumed
+                    # finished; sorted() matches the ascending free list
+                    # of the synchronous loop at the same step
+                    free_slots=sorted(free + due),
+                    lanes=[ln for ln in self._lane_views()
+                           if ln.slot not in due_meta],
+                    cost=self.cost, speculative=need_verify)
+                dec = self.policy.decide(view)
+                spec_admits = [a.slot for a in dec.admissions
+                               if a.slot in due_meta]
+                if dec.admissions or dec.evictions:
+                    undo = self._apply_decision(dec, now=now,
+                                                record_undo=need_verify)
+                    if spec_admits:
+                        self._c_spec.inc()
+            # lanes presumed running after the presumed drains: no round
+            # when the grid would be empty (the synchronous loop runs none
+            # on its final drain either)
+            presumed_live = (len(occupied) - len(due)
+                             + len(dec.admissions) - len(dec.evictions))
+            if presumed_live > 0:
+                dispatched = self._dispatch(presumed_live)
+                self.round_count = now + 1
+
+        out: list[tuple[int, SampleOut]] = []
+        if need_verify:
+            t0 = self.tracer.now()
+            done, rounds_used, chosen, due_res = \
+                self._collect_readback(pending)
+            self.tracer.span("verify/readback", t0, round_idx=now,
+                             due=len(due))
+            self._c_host_syncs.inc()
+            failed = [s for s in spec_admits if not done[s]]
+            if failed:
+                # -- reconcile: a speculative admission hit a live lane --
+                self._c_spec_rollbacks.inc()
+                self.tracer.instant("spec/rollback", round_idx=now,
+                                    slots=list(failed),
+                                    wasted=int(dispatched is not None))
+                if dispatched is not None:
+                    self._c_spec_wasted.inc()
+                    self.round_count = now
+                dispatched = None
+                self.state = prev
+                self._undo_decision(undo)
+                out += self._drain_due(due, due_meta, done, rounds_used,
+                                       chosen, due_res)
+                for s in due:
+                    if not done[s] and self._slot_item[s] is not None:
+                        self._pred_done[s] = now + 1  # re-verify next step
+                free2 = [i for i, it in enumerate(self._slot_item)
+                         if it is None]
+                if len(self.queue) and (free2 or self.policy.preemptive):
+                    view = EngineView(now=now, queue=self.queue,
+                                      free_slots=free2,
+                                      lanes=self._lane_views(),
+                                      cost=self.cost)
+                    self._apply_decision(self.policy.decide(view), now=now)
+                if self.has_inflight:
+                    dispatched = self._dispatch(sum(
+                        it is not None for it in self._slot_item))
+                    self.round_count = now + 1
+            else:
+                if spec_admits:
+                    self._c_spec_confirms.inc()
+                    self.tracer.instant("spec/confirm", round_idx=now,
+                                        slots=list(spec_admits))
+                adm_slots = {a.slot for a in dec.admissions}
+                out += self._drain_due(due, due_meta, done, rounds_used,
+                                       chosen, due_res)
+                self._trace_commit_undo(undo, now)
+                for s in due:
+                    if not done[s] and s not in adm_slots:
+                        self._pred_done[s] = now + 1  # overdue: verify again
+                # early accepts (actual < predicted) surface in the same
+                # readback: drain them at the next step
+                for s, it in enumerate(self._slot_item):
+                    if it is not None and s not in due_meta \
+                            and s not in adm_slots and done[s]:
+                        self._c_drain_lag.inc()
+                        self._pred_done[s] = now + 1
+
+        if dispatched is not None:
+            self.state = dispatched
+            self._count_round(sum(it is not None for it in self._slot_item))
+        if not self.has_inflight:
+            self._last_dispatch_done = None
+        return out
+
+    def _drain_due(self, due, due_meta, done, rounds_used, chosen,
+                   due_res) -> list[tuple[int, SampleOut]]:
+        """Drain the due lanes whose accept fired, from the retained
+        pre-round state's readback. A slot whose speculative re-admission
+        was confirmed already carries its NEW item in the mirrors: the old
+        lane's identity comes from ``due_meta`` and the slot stays taken."""
+        out = []
+        for j, s in enumerate(due):
+            item, i_seq, admit_round, admit_wall = due_meta[s]
+            if not done[s]:
+                continue
+            ru = int(rounds_used[s])
+            out.append(self._finish_lane(item, i_seq, ru, int(chosen[s]),
+                                         due_res[j],
+                                         acc_round=admit_round + ru,
+                                         slot=s, admit_wall=admit_wall))
+            if self._slot_item[s] is item:
+                self._slot_item[s] = None  # freed; stale flags stay until
+                self._pred_done[s] = None  # the next admission (frozen lane)
         return out
 
     def run_until_drained(self, max_rounds: Optional[int] = None,
@@ -524,7 +905,7 @@ class ContinuousEngine:
     def stats(self) -> dict:
         """Throughput + latency percentiles in lockstep-round units, with
         the reference's keys (features not ported yet at their idle
-        values)."""
+        values), rendered from the metrics registry."""
         served = int(self._c_served.value)
         rounds = max(1, self.round_count)
         deadline_total = int(self._c_deadline_total.value)
@@ -542,12 +923,12 @@ class ContinuousEngine:
             "mean_speedup": self._h_speedup.mean,
             "policy": self.policy.name,
             "host_syncs": int(self._c_host_syncs.value),
-            "overlap": False,
-            "speculations": 0,
-            "speculation_confirms": 0,
-            "speculation_rollbacks": 0,
-            "speculated_rounds_wasted": 0,
-            "drain_lag_rounds": 0,
+            "overlap": self.overlap,
+            "speculations": int(self._c_spec.value),
+            "speculation_confirms": int(self._c_spec_confirms.value),
+            "speculation_rollbacks": int(self._c_spec_rollbacks.value),
+            "speculated_rounds_wasted": int(self._c_spec_wasted.value),
+            "drain_lag_rounds": int(self._c_drain_lag.value),
             "dispatches": int(self._c_dispatches.value),
             "round_gap_count": self._h_gap.count,
             "round_gap_mean_s": self._h_gap.mean,

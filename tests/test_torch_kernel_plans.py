@@ -1,9 +1,10 @@
-"""The launch plans of the redesigned ``rmsnorm`` and
-``fused_step_rectify_accept`` kernels, and the accept kernel's summation
-order, checked on the CPU before any card is involved.
+"""The launch plans of the redesigned ``rmsnorm``, ``fused_step_rectify``
+and ``fused_step_rectify_accept`` kernels, and the accept kernel's
+summation order, checked on the CPU before any card is involved.
 
 The plans are pure Python (``kernels/rmsnorm/kernel.py::plan``,
-``kernels/rectify/kernel.py::accept_plan``) and the wrappers pass them to
+``kernels/rectify/kernel.py::step_plan`` and ``accept_plan``) and the
+wrappers pass them to
 the CUDA launchers as they are, so what the tests show about coverage here
 holds for the launches on the card. ``accept_sums_in_kernel_order`` emulates
 the accept kernel's fixed order (per-thread partials, the warp and block
@@ -18,8 +19,10 @@ import pytest
 import torch
 
 from repro.kernels.rectify.kernel import fused_step_rectify_accept as j_accept
-from repro_torch.kernels.rectify.kernel import (MAX_CLUSTER, AcceptPlan,
-                                                accept_plan)
+from repro_torch.kernels.rectify.kernel import (MAX_CLUSTER, MAX_THREADS,
+                                                TARGET_BLOCKS, AcceptPlan,
+                                                StepPlan, accept_plan,
+                                                step_plan)
 from repro_torch.kernels.rectify.ref import (accept_sums_in_kernel_order,
                                              fused_step_rectify_accept_ref)
 from repro_torch.kernels.rmsnorm.kernel import (BLOCK_THREADS, MAX_VECS,
@@ -63,6 +66,50 @@ def test_accept_plan_fills_the_card_at_the_serving_shape():
     # a short row is not cut into blocks without a warp's worth of columns
     assert accept_plan(32, 3, True).cluster == 1
     assert accept_plan(200, 1024, True).cluster == 1
+
+
+def _step_coverage(m, p):
+    """How many times the step launch touches each column of a row: block
+    b, thread t, the ``vec`` columns from (b * threads + t) * vec, if that
+    start lies in the row (as ``csrc/rectify.cu`` guards it)."""
+    hits = np.zeros(m, np.int64)
+    tile = p.threads * p.vec
+    for b in range(-(-m // tile)):
+        for t in range(p.threads):
+            c = (b * p.threads + t) * p.vec
+            if c < m:
+                assert c + p.vec <= m  # a piece never straddles the row end
+                hits[c:c + p.vec] += 1
+    return hits
+
+
+@pytest.mark.parametrize("rows", [1, 3, 32, 64, 65535])
+@pytest.mark.parametrize("m", [1, 3, 4, 1000, 1024, 1025, 4099, 100_003])
+@pytest.mark.parametrize("vec_ok", [True, False])
+def test_step_plan_covers_every_column_once(rows, m, vec_ok):
+    p = step_plan(rows, m, vec_ok)
+    assert p.vec == (4 if vec_ok and m % 4 == 0 else 1)
+    assert 32 <= p.threads <= MAX_THREADS
+    assert p.threads & (p.threads - 1) == 0
+    assert (_step_coverage(m, p) == 1).all()
+    # the word the C launcher unpacks (csrc/rectify.cu: bits 0-11 threads,
+    # bits 12-15 vec) round-trips
+    assert (p.word & 4095, p.word >> 12 & 15) == tuple(p)
+    assert p.word >> 16 == 0
+
+
+def test_step_plan_fills_the_card_at_the_serving_shape():
+    """S*K = 32 rows of M = 1*64*16: 4 tiles a row of 64 threads, one
+    float4 per operand and thread, 128 blocks for the H100's 132 SMs."""
+    p = step_plan(32, 1024, True)
+    assert p == StepPlan(threads=64, vec=4)
+    assert 32 * -(-1024 // (p.threads * p.vec)) >= TARGET_BLOCKS
+    # unaligned operands: one column a thread, still >= 128 blocks
+    q = step_plan(32, 1024, False)
+    assert q.vec == 1 and 32 * -(-1024 // q.threads) >= TARGET_BLOCKS
+    # many rows need no more tiles; a short row takes one warp
+    assert step_plan(4096, 1024, True) == StepPlan(threads=256, vec=4)
+    assert step_plan(32, 3, True) == StepPlan(threads=32, vec=1)
 
 
 def _rmsnorm_coverage(d, p):

@@ -49,6 +49,48 @@ def test_rectify_kernels_bitwise(cuda, rows, m, p):
     torch.testing.assert_close(o, rs, rtol=1e-5, atol=0)
 
 
+# (rows, M, offset): the serving shape, M = 1, odd M, M % 4 == 0 but the
+# operands a view 4 bytes (offset 1) off 16-byte alignment, a long row,
+# and the 65535-row limit
+STEP_CASES = [(32, 1024, 0), (32, 1, 0), (7, 4099, 0), (32, 1024, 1),
+              (64, 100_003, 0), (65535, 3, 0), (65535, 8, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m,offset", STEP_CASES)
+def test_step_rectify_kernel_sweep(cuda, rows, m, offset):
+    """The step kernel bitwise its plain version through both load widths
+    (``step_plan``: float4 where aligned, one column a thread where not),
+    and one device kernel a call (no cast of ``fire``): in a profiler
+    window, with host gaps at its edges as ``chip_smoke.profiled`` keeps
+    them, and in a CUDA graph captured from one call."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import GAP_S, graph_kernel_nodes
+    from repro_torch.kernels.rectify import kernel
+    flat = [torch.randn(rows * m + offset, generator=cuda, device="cuda")
+            for _ in range(6)]
+    lat = [t[offset:].view(rows, m) for t in flat]
+    dt, ds = (torch.rand(rows, generator=cuda, device="cuda")
+              for _ in range(2))
+    fire = torch.rand(rows, generator=cuda, device="cuda") < 0.5
+    out = kernel.fused_step_rectify(*lat, dt, ds, fire)
+    assert torch.equal(out, fused_step_rectify_ref(*lat, dt, ds, fire))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(GAP_S)
+        for _ in range(4):
+            kernel.fused_step_rectify(*lat, dt, ds, fire)
+        torch.cuda.synchronize()
+        time.sleep(GAP_S)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "step_rectify_kernel" in kernels[0].key
+    assert kernels[0].count == 4
+    assert graph_kernel_nodes(
+        lambda: kernel.fused_step_rectify(*lat, dt, ds, fire)) == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-2)])

@@ -161,6 +161,17 @@ def test_chords_engine_use_kernel_flip_is_bitwise(models):
 @pytest.mark.parametrize("kw", [{"overlap": True}, {"min_slots": 1},
                                 {"lane_profile": True}])
 def test_unported_engine_features_raise(kw):
+    """Elastic sizes (item 6) and lane profiles (item 7) refuse at
+    construction; the overlap engine is ported, but its multi-round device
+    loop (``max_rounds_on_device > 1``, item 8) still refuses."""
+    if kw.get("overlap"):
+        eng = ContinuousEngine(lambda x, t: -x, (2,), 4, 2, uniform_tgrid(4),
+                               num_slots=2, device="cpu", **kw)
+        eng.submit(Request(rid=0, seed=1))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item 8"):
+            eng.step(max_rounds_on_device=2)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         ContinuousEngine(lambda x, t: -x, (2,), 4, 2, uniform_tgrid(4),
                          num_slots=2, device="cpu", **kw)
@@ -170,6 +181,8 @@ def test_unported_engine_features_raise(kw):
     ((), "served=8"),
     (("--static", "--use-kernels", "--requests", "5"),
      "static: served 5 requests"),
+    (("--overlap", "--use-kernels", "--policy", "edf-preempt"),
+     "overlap=true"),
 ])
 def test_launcher_runs_on_cpu(extra, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
