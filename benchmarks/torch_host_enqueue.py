@@ -17,7 +17,10 @@ ahead of the device: the measurements behind the overlap engine's finding.
    (``ContinuousEngine(overlap=True).step()``, no readback), beside the
    synchronous engine's steps; with the device time and the kernel
    launches of one round from a profiler window, and the round captured
-   once as a CUDA graph and replayed (device time per replay).
+   once as a CUDA graph and replayed (device time per replay). Every
+   engine here runs the eager programs (``RoundExecutor(eager=True)``):
+   this measures the per-launch host cost that the engines' CUDA graphs
+   (``serve/graphs.py``, the default on the card) remove.
 
 One JSON line per measurement, the card's name and power limit first.
 Times are medians of 10 (host clock; ``torch.cuda.synchronize`` closes
@@ -113,14 +116,16 @@ def serving_round():
     from repro_torch.core import uniform_tgrid
     from repro_torch.diffusion import make_drift
     from repro_torch.serve import ContinuousEngine, Request
+    from repro_torch.serve.executor import RoundExecutor
     cfg, params = build_model("chords-dit-xl")
     drift = make_drift(params, cfg.replace(use_kernels=True))
     n, k, s = 50, 8, 4
     tgrid = uniform_tgrid(n, device="cuda")
 
     def engine(overlap):
+        ex = RoundExecutor(drift, tgrid, n, use_kernel=True, eager=True)
         e = ContinuousEngine(drift, (1, 64, 16), n, k, tgrid, num_slots=s,
-                             rtol=0.0, use_kernel=True, overlap=overlap,
+                             rtol=0.0, overlap=overlap, executor=ex,
                              device="cuda")
         for i in range(s):
             e.submit(Request(rid=i, seed=300 + i))

@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
-1. device   — card name, ``nvidia-smi`` name and power limit, ``nvcc``;
+1. device   — card name, ``nvidia-smi`` name and power limit, ``nvcc``,
+              PyTorch's CUDA and the driver's CUDA version (the loop graphs'
+              conditional nodes need 12.4);
 2. build    — every CUDA source of the port built with ``nvcc`` (in
               parallel) into ``build/kernels/``;
 3. kernels  — each kernel wrapper against its plain PyTorch version at the
@@ -22,7 +24,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ``F.rms_norm``, as wrapper time and as device time per call
               (profiler); the accept kernel's sums bitwise equal between
               launches and to its summation order emulated in plain torch,
-              and exactly one device kernel a call;
+              and exactly one device kernel a call; the device loop's
+              condition kernel exactly equal to its plain version;
 4. parity   — the serving path on the card against the same path on the
               CPU on a closed-form drift (scheduling exact, samples 1e-4);
 5. drift    — ``chords-dit-xl`` at full width and depth, random weights
@@ -49,9 +52,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               0 and 0.05: samples bitwise equal per request, equal rounds,
               latencies and deadline counts, fewer readbacks, launch
               counts of every dispatched round, and no synchronizing call
-              between speculating and verifying
-              (``torch.cuda.set_sync_debug_mode("error")``); then the
-              device idle share of each mode from a profiled window;
+              between speculating and verifying, counted twice
+              (``torch.cuda.set_sync_debug_mode("error")``, and the CUDA
+              runtime calls the profiler records inside those windows); then
+              the device idle share of each mode from a profiled window;
 8. ssd      — one ``zamba2-2.7b`` Mamba2 layer at full width (d_model
               2560), f32, B=2, 512 tokens (two chunks of 256, so the
               inter-chunk recurrence runs on the card): the kernel
@@ -62,7 +66,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (relative L2 error), exact launch counts per call; and an f32
               check at full width and 6 layers (one group);
 10. hybrid-serve — phase 6 with the hybrid drift (launch counts of all five
-              kernels, profile).
+              kernels, profile);
+11. device-loop — the multi-round device loop on ``chords-dit-xl``: the
+              launcher defaults through the synchronous loop at R=1 (eager
+              and CUDA graphs) and R=8 (graphs), samples bitwise, equal
+              rounds, at most half as many readbacks; the SLA and rollback
+              traces through the overlap loop at R=8 against R=1; the
+              round graph's nodes (kernel nodes equal to the eager round's
+              profiled launches, the port's kernels among them); a steady
+              window of eager R=1, graph R=1 and graph R=8 in each loop
+              (s and device ms a round, idle share); capture time and memory;
+12. hybrid-device-loop — phase 11 on ``zamba2-2.7b``.
+
+On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
+unless a phase asks for the eager programs. Launch counts are taken by the
+kernels themselves on the device (``kernels.launch_counts``), so they count
+what ran, graph replays included, and are held to the rounds the engine
+says it dispatched.
 
 The line before the last holds ``{"kernels": [...]}``; the line before that
 the ``nvidia-smi`` name and power limit; the last line is
@@ -80,7 +100,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
-          "overlap-serve", "ssd", "hybrid-drift", "hybrid-serve")
+          "overlap-serve", "device-loop", "ssd", "hybrid-drift",
+          "hybrid-serve", "hybrid-device-loop")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -123,11 +144,11 @@ def median_ms(fn, iters: int = 10, reps: int = 10, warmup: int = 3) -> float:
 GAP_S = 0.005
 
 
-def profiled(warm, body):
+def profiled(warm, body, raw: bool = False):
     """``warm()`` in a warm-up window, then ``body()`` in the recorded one,
     each followed by a synchronize, under ``torch.profiler``; the host waits
     ``GAP_S`` after the recorded window opens and again before it closes.
-    Returns the device events of ``body``."""
+    Returns the device events of ``body`` (``raw``: the profiler itself)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -139,7 +160,7 @@ def profiled(warm, body):
         body()
         torch.cuda.synchronize()
         time.sleep(GAP_S)
-    return _device_events(prof)
+    return prof if raw else _device_events(prof)
 
 
 def device_ms(fn, calls: int = 20):
@@ -157,11 +178,9 @@ def device_ms(fn, calls: int = 20):
 
 def graph_kernel_nodes(fn) -> int:
     """Kernel nodes of a CUDA graph captured from one call of ``fn``: the
-    device kernels a call enqueues, counted without the profiler (driver
-    API ``cuGraphGetNodes``/``cuGraphNodeGetType``)."""
-    import ctypes
+    device kernels a call enqueues, counted without the profiler
+    (:func:`graph_nodes`)."""
     import torch
-    cu = ctypes.CDLL("libcuda.so.1")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -170,36 +189,54 @@ def graph_kernel_nodes(fn) -> int:
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g):
         fn()
-    raw, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
-        raise AssertionError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
-    kernels = 0
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
-            raise AssertionError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    kernels = graph_nodes(g.raw_cuda_graph())["types"].get("kernel", 0)
     g.reset()
     return kernels
 
 
-def check_one_kernel(what: str, tag: str, fn) -> dict:
-    """One device kernel a call of ``fn``, counted twice: a profiler window
-    shows ``tag``'s kernel and no other (a cast or a second pass would show
-    by its name) exactly once a call, and a CUDA graph captured from one
-    call holds exactly one kernel node. Returns the window's device time
-    a call."""
-    ms, per_call, names = device_ms(fn)
+# profiler windows a one-kernel check may open: the profiler still loses a
+# kernel record now and then with the gap (a window of 20 accept calls once
+# read 19 while nothing else was wrong), so a window that recorded fewer
+# kernels than the kernels' own device counters counted in it is opened
+# again; any other disagreement fails at once
+ONE_KERNEL_WINDOWS = 3
+
+
+def check_one_kernel(what: str, tag: str, fn, calls: int = 20) -> dict:
+    """One device kernel a call of ``fn``, counted three times: the port's
+    kernels count exactly one launch a call on the device
+    (``kernels.launch_counts``), a CUDA graph captured from one call holds
+    exactly one kernel node, and a profiler window shows ``tag``'s kernel
+    and no other (a cast or a second pass would show by its name) exactly
+    once a call. A window whose records fall short of the device's count
+    lost them in the profiler and is opened again (``ONE_KERNEL_WINDOWS``).
+    Returns the exact window's device time a call."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     nodes = graph_kernel_nodes(fn)
-    if per_call != 1 or nodes != 1 or not names \
+    lost = []
+    for _ in range(ONE_KERNEL_WINDOWS):
+        reset_launch_counts()
+        ms, per_call, names = device_ms(fn, calls)
+        # the window's warm-up runs the calls too
+        ran = sum(launch_counts().values()) / (2 * calls)
+        if per_call >= 1 or ran != 1 or nodes != 1 or not names \
+                or not all(tag in n for n in names):
+            break
+        lost.append(round(calls * (1 - per_call)))
+        emit("profiler-loss", what=what, calls=calls,
+             kernels_recorded=round(calls * per_call),
+             device_launches=calls)
+    if per_call != 1 or ran != 1 or nodes != 1 or not names \
             or not all(tag in n for n in names):
         raise AssertionError(f"{what}: {per_call} device kernels a call "
-                             f"({names}), {nodes} kernel nodes in a graph "
-                             f"of one call, want one {tag}")
-    return {"kernels_per_call": per_call, "graph_kernel_nodes": nodes,
-            "device_ms": ms, "names": names}
+                             f"({names}) in the profiler, {ran} launches a "
+                             f"call on the device's counters, {nodes} "
+                             f"kernel nodes in a graph of one call, want "
+                             f"one {tag} (records lost by earlier "
+                             f"windows: {lost})")
+    return {"kernels_per_call": per_call, "device_launches_per_call": ran,
+            "graph_kernel_nodes": nodes, "device_ms": ms, "names": names,
+            "profiler_records_lost": lost}
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -220,6 +257,9 @@ def rel_l2(a, b) -> float:
 
 # -- phase 1 ------------------------------------------------------------------
 
+CARD = [""]  # the nvidia-smi name and power limit, set by phase_device
+
+
 def phase_device():
     import torch
     smi = subprocess.run(
@@ -231,11 +271,16 @@ def phase_device():
         nvcc = nvcc.splitlines()[-1]
     except (OSError, subprocess.CalledProcessError) as e:
         raise RuntimeError(f"nvcc --version failed: {e}")
+    import ctypes
+    drv = ctypes.c_int(0)
+    if ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(drv)):
+        raise RuntimeError("cuDriverGetVersion failed")
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvcc=nvcc,
+         cuda=torch.version.cuda, driver_cuda=drv.value, nvcc=nvcc,
          nvidia_smi=smi.stdout.strip().splitlines()[0])
-    return smi.stdout.strip().splitlines()[0]
+    CARD[0] = smi.stdout.strip().splitlines()[0]
+    return CARD[0]
 
 
 def _nvcc():
@@ -595,6 +640,64 @@ def check_ssd(gen, records):
                 "round_bound_ms": 54 * bms})
 
 
+def check_device_loop(gen, records):
+    """The device loop's condition kernel against its plain version on
+    random flags at S 1, 4 (the serving grid), 64 and 4096, entry and eight
+    steps each, multi and roll: ``ctrl``, ``done0`` and the condition
+    exactly equal; timed at S=4 as one standalone launch (in the loop
+    programs it is a graph node), one device kernel a call."""
+    import torch
+    from repro_torch.kernels.device_loop.kernel import loop_step
+    from repro_torch.kernels.device_loop.ref import (EXIT_ON_ACCEPT, FIRST,
+                                                     loop_step_ref)
+    cases = []
+    for s in (1, 4, 64, 4096):
+        for flags in (EXIT_ON_ACCEPT, 0):
+            live = torch.rand(s, generator=gen, device="cuda") < 0.5
+            done = torch.rand(s, generator=gen, device="cuda") < 0.3
+            d0k, d0r = (torch.zeros(s, dtype=torch.bool, device="cuda")
+                        for _ in range(2))
+            ck, cr = (torch.tensor([6, 0, 0, 0], dtype=torch.int32,
+                                   device="cuda") for _ in range(2))
+            conds = []
+            for i in range(9):
+                f = flags | (FIRST if i == 0 else 0)
+                gk = int(loop_step(live, done, d0k, ck, f))
+                gr = int(loop_step_ref(live, done, d0r, cr, f))
+                if gk != gr or not (torch.equal(ck, cr)
+                                    and torch.equal(d0k, d0r)):
+                    raise AssertionError(f"device loop S={s} flags {f} "
+                                         f"step {i}: {ck.tolist()} vs "
+                                         f"{cr.tolist()}")
+                conds.append(gk)
+                live = live & (torch.rand(s, generator=gen, device="cuda")
+                               < 0.85)
+                done = done | (torch.rand(s, generator=gen, device="cuda")
+                               < 0.05)
+            cases.append({"s": s, "flags": flags, "conditions": conds})
+    s = 4
+    live = torch.ones(s, dtype=torch.bool, device="cuda")
+    done = torch.zeros(s, dtype=torch.bool, device="cuda")
+    d0 = torch.zeros(s, dtype=torch.bool, device="cuda")
+    ctrl = torch.tensor([1 << 30, 0, 0, 0], dtype=torch.int32, device="cuda")
+    loop_step(live, done, d0, ctrl, EXIT_ON_ACCEPT | FIRST)
+    ms = median_ms(lambda: loop_step(live, done, d0, ctrl, EXIT_ON_ACCEPT))
+    plain = median_ms(lambda: loop_step_ref(live, done, d0, ctrl,
+                                            EXIT_ON_ACCEPT))
+    # live, done, done0 read once, three control words read and three
+    # written; ~3 operations a slot
+    bms, by = bound_ms(3 * s + 24, 3 * s, "float32")
+    one = check_one_kernel("device loop", "device_loop_kernel",
+                           lambda: loop_step(live, done, d0, ctrl,
+                                             EXIT_ON_ACCEPT))
+    records["device_loop"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+        max_abs_err=0.0, shape=[s], device_ms=one["device_ms"],
+        kernels_per_call=one["kernels_per_call"],
+        graph_kernel_nodes=one["graph_kernel_nodes"])
+    emit("kernels/device_loop", cases=cases, timing=records["device_loop"])
+
+
 def phase_kernels(records):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -602,6 +705,7 @@ def phase_kernels(records):
     check_rmsnorm(gen, records)
     check_flash(gen, records)
     check_ssd(gen, records)
+    check_device_loop(gen, records)
     emit("kernels", timings={k: {f: v[f] for f in ("ms", "plain_ms",
                                                     "library_ms", "bound_ms",
                                                     "bound_by")}
@@ -818,8 +922,7 @@ def phase_serve(cfg, params, phase="serve"):
     st = engine.stats()
     _check_served(done, 8, n, (1, 64, 16))
     rounds = st["rounds_total"]
-    want = {"fused_step_rectify_accept": rounds, "fused_step_rectify": 0,
-            **{name: c * rounds for name, c in per_call.items()}}
+    want = _want(per_call, rounds)
     if c1 != want or st["kernel_path"] != "fused-accept-cuda":
         raise AssertionError(f"ContinuousEngine launches {c1} != {want} "
                              f"(kernel_path {st['kernel_path']})")
@@ -843,8 +946,7 @@ def phase_serve(cfg, params, phase="serve"):
     c2 = launch_counts()
     _check_served(done2, 4, n, (64, 16))
     rounds = static.total_rounds()
-    want = {"fused_step_rectify_accept": 0, "fused_step_rectify": rounds,
-            **{name: c * rounds for name, c in per_call.items()}}
+    want = _want(per_call, rounds, accept=False)
     if c2 != want or static.executor.kernel_path != "fused-accept-cuda":
         raise AssertionError(f"ChordsEngine launches {c2} != {want}")
     out["static"] = dict(requests=4, rounds=rounds, wall_s=wall,
@@ -857,37 +959,70 @@ def phase_serve(cfg, params, phase="serve"):
     return {name: c1[name] + c2[name] for name in c1}
 
 
+def _want(per_call, rounds, accept=True, loop=0):
+    """The launch counts of ``rounds`` served rounds: the backbone's per
+    call, one accept (or, for ``ChordsEngine``, one step) kernel a round,
+    and ``loop`` launches of the device loop's condition kernel."""
+    return {"fused_step_rectify_accept": rounds if accept else 0,
+            "fused_step_rectify": 0 if accept else rounds,
+            **{name: c * rounds for name, c in per_call.items()},
+            "device_loop": loop}
+
+
 def _serve_trace(drift, tgrid, n, k, s, overlap, policy=None, rtol=0.0,
-                 trace=None):
+                 trace=None, r_dev=1, eager=False):
     """One engine serving ``trace`` (requests submitted up front) or, by
-    default, the SLA trace (``sched/workload.py``), launch counters reset
-    just before: (results, stats, wall s, launch counts). The overlap
-    engine runs with ``guard_syncs``: a synchronizing CUDA call between
-    speculating and verifying raises."""
+    default, the SLA trace (``sched/workload.py``), up to ``r_dev`` rounds
+    a step, on the CUDA graphs or (``eager``) the eager programs,
+    launch counters reset just before: (results, stats, wall s, launch
+    counts). The overlap engine runs with ``guard_syncs`` (a synchronizing
+    CUDA call between speculating and verifying raises) except on the
+    eager programs at ``r_dev`` > 1."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve import ContinuousEngine
     from repro_torch.serve.sched.workload import (drive, sla_demo_trace,
                                                   sla_engine_kwargs)
     # the SLA trace's requests carry their rtol, the others the engine's
     kw = sla_engine_kwargs(n) if trace is None else {"rtol": rtol}
-    engine = ContinuousEngine(drift, (1, 64, 16), n, k, tgrid, num_slots=s,
-                              policy=policy, use_kernel=True,
-                              overlap=overlap, guard_syncs=overlap,
-                              device="cuda", **kw)
+    # the eager multi-round loop reads its condition back every round (it
+    # is the plain version of the graphs' device-side exit): unguarded
+    guard = overlap and (not eager or r_dev == 1)
+    engine = _engine(drift, tgrid, n, k, s, eager, policy=policy,
+                     overlap=overlap, guard_syncs=guard, **kw)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
     with torch.no_grad():
         if trace is None:
-            done = drive(engine, *sla_demo_trace(n, rtol=rtol))
+            done = drive(engine, *sla_demo_trace(n, rtol=rtol),
+                         max_rounds_on_device=r_dev)
         else:
             for req in trace:
                 engine.submit(req)
-            done = dict(engine.run_until_drained())
+            done = dict(engine.run_until_drained(
+                max_rounds_on_device=r_dev))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return done, engine.stats(), wall, launch_counts()
+    return done, _stats(engine), wall, launch_counts()
+
+
+def _stats(engine) -> dict:
+    """``engine.stats()`` and its dispatches by program kind
+    (``dispatch_kinds``: round, multi, roll)."""
+    m = engine.metrics
+    return dict(engine.stats(), dispatch_kinds={
+        kind: int(m[f"serve.dispatches.{kind}"].value)
+        if f"serve.dispatches.{kind}" in m else 0
+        for kind in ("round", "multi", "roll")})
+
+
+def _want_sync(per_call, st):
+    """The launches of a synchronous run, from the engine's own numbers:
+    every round ran once on the device, and each ``multi`` evaluated the
+    loop condition once at entry and once a round."""
+    kinds, rounds = st["dispatch_kinds"], st["rounds_total"]
+    return _want(per_call, rounds,
+                 loop=kinds["multi"] + rounds - kinds["round"])
 
 
 def _sync_vs_overlap(what, per_call, run):
@@ -902,8 +1037,7 @@ def _sync_vs_overlap(what, per_call, run):
     for overlap in (False, True):
         done, st, wall, counts = run(overlap)
         rounds = st["rounds_total"] + st["speculated_rounds_wasted"]
-        want = {"fused_step_rectify_accept": rounds, "fused_step_rectify": 0,
-                **{name: c * rounds for name, c in per_call.items()}}
+        want = _want(per_call, rounds)
         if counts != want or st["dispatches"] != rounds:
             raise AssertionError(
                 f"{what} overlap {overlap}: launches {counts} != {want} "
@@ -1001,6 +1135,10 @@ def phase_overlap_serve(cfg, params, phase="overlap-serve"):
                              f"overlap stats {st_o}")
     runs.append(_modes_record(res, policy="fifo", rtol=1e-9, slots=1))
     emit(phase + "/rollback", **runs[-1])
+    emit(phase + "/no-sync", **no_sync_count(lambda: _serve_trace(
+        drift, tgrid, n, k, 1, True, rtol=1e-9,
+        trace=[Request(rid=rid, seed=500 + rid) for rid in (0, 1)]),
+        what))
     idle = {mode: profile_rounds(drift, tgrid, n, k, s,
                                  f"{phase}/profile-{mode}", per_call,
                                  overlap=mode == "overlap", timed=10)
@@ -1008,6 +1146,48 @@ def phase_overlap_serve(cfg, params, phase="overlap-serve"):
     emit(phase, arch=cfg.name, layers=cfg.num_layers, runs=len(runs),
          profile=idle)
     return total
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def no_sync_count(run, what) -> dict:
+    """The second count behind "no synchronizing call between speculating
+    and verifying": ``run()`` (an overlap engine with ``guard_syncs``) in a
+    gap-padded profiler window (:func:`profiled`); among the CUDA runtime
+    calls made inside an ``overlap/no_sync`` range (the engine's speculate
+    -> dispatch span, and the fast path's dispatch), none may synchronize:
+    no ``SYNC_CALLS`` and no memcpy that is not ``*Async``. A call belongs
+    to a range when the range encloses it in the profiler's operator tree
+    (``cpu_parent``), not by time: the runtime calls' timestamps come from
+    CUPTI and read up to a few hundred µs off the operators' (a ``.item()``
+    made just before a range opened showed inside it by time)."""
+    import torch
+    prof = profiled(lambda: None, run, raw=True)
+    events = prof.events()
+    windows = sum(e.name == "overlap/no_sync" for e in events)
+    seen, bad = {}, []
+    for e in events:
+        if not e.name.startswith("cuda") \
+                or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        parents, p = [], e.cpu_parent
+        while p is not None:
+            parents.append(p.name)
+            p = p.cpu_parent
+        if "overlap/no_sync" not in parents:
+            continue
+        seen[e.name] = seen.get(e.name, 0) + 1
+        if e.name in SYNC_CALLS or (e.name.startswith("cudaMemcpy")
+                                    and "Async" not in e.name):
+            bad.append({"name": e.name, "parents": parents})
+    rec = {"windows": windows, "runtime_events": sum(seen.values()),
+           "by_name": seen, "sync_calls": len(bad)}
+    if bad or not windows or not seen:
+        raise AssertionError(f"{what}: synchronizing calls inside the "
+                             f"no-sync ranges {bad}; {rec}")
+    return rec
 
 
 # kernel-name substrings of the port's kernels in profiler keys
@@ -1058,50 +1238,134 @@ def _check_profiled_launches(ours, per_round):
                                  f"{got} times a round, want {count}")
 
 
+def _engine(drift, tgrid, n, k, s, eager=False, **kw):
+    """A ``ContinuousEngine`` at the launcher's latent on its own executor
+    (``eager``: the eager programs)."""
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve.executor import RoundExecutor
+    ex = RoundExecutor(drift, tgrid, n, use_kernel=True, eager=eager)
+    return ContinuousEngine(drift, (1, 64, 16), n, k, tgrid, num_slots=s,
+                            executor=ex, device="cuda", **kw)
+
+
 def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
                    rounds: int = 3, overlap: bool = False,
-                   timed: int = 0):
+                   timed: int = 0, eager: bool = False, r_dev: int = 1,
+                   accept_path: bool = True):
     """Where a serving round's time goes, on a full grid after one warm
     step (rtol 0: no lane drains), in the synchronous loop or, with
     ``overlap``, the overlap loop (whose steps there all take the fast
-    path): ``timed`` steps (default ``rounds``) timed without the profiler
-    (wall per round, and the host's time per step before the final
-    synchronize: in the overlap loop its enqueue alone), then ``rounds``
-    steps under ``torch.profiler`` after one warm-up step (device time by
-    kernel; each backbone kernel's launches per round must equal
-    ``per_call``, one drift call a round). The idle share is 1 - device
-    time / unprofiled wall time."""
+    path), each step up to ``r_dev`` rounds, on the CUDA graphs (default)
+    or the eager programs (``eager``): ``timed`` steps (default
+    ``rounds``) timed without the profiler (wall per round, the host's
+    time per round before the final synchronize: in the overlap loop its
+    enqueue alone; and the device's span per round, CUDA events around
+    each step, which counts the gaps inside a graph as busy), then, at
+    ``r_dev`` 1, ``rounds`` steps under ``torch.profiler``
+    after one warm-up step (device time by kernel; each backbone kernel's
+    launches per round must equal ``per_call``, one drift call a round;
+    ``accept_path``: the accept call launches one kernel). The idle share
+    is 1 - device time / unprofiled wall time.
+
+    At ``r_dev`` > 1 no window is profiled: a step is up to 8 rounds
+    (~16 000 kernels DiT, ~34 000 hybrid), and the profiler's records of
+    such windows were not exact (a loop graph's dropped, up to all of a
+    window's; 8 replays of the hybrid round once read 82.25 rmsnorm
+    launches a round). The device time is then elapsed time, gaps between
+    kernels counted busy: a synchronous step on the graphs is one
+    ``multi`` loop graph, timed by the loop's own clock
+    (``device_loop.clock``: ``%globaltimer`` read by the condition kernel
+    after each round; every timed step must be a ``multi``, and the
+    device's loop-round word must equal the engine's rounds); otherwise
+    the CUDA-event span of each step."""
     import torch
-    from repro_torch.serve import ContinuousEngine, Request
-    engine = ContinuousEngine(drift, (1, 64, 16), n, k, tgrid, num_slots=s,
-                              rtol=0.0, use_kernel=True, overlap=overlap,
-                              device="cuda")
+    from repro_torch.kernels.device_loop.kernel import clock
+    from repro_torch.serve import Request
+    engine = _engine(drift, tgrid, n, k, s, eager, rtol=0.0,
+                     overlap=overlap)
     for i in range(s):
         engine.submit(Request(rid=i, seed=300 + i))
+    timed = timed or rounds
+    loop_graph = r_dev > 1 and not (overlap or eager)
+    profile = r_dev == 1
     with torch.no_grad():
-        engine.step()
+        engine.step(r_dev)
         torch.cuda.synchronize()
-        timed = timed or rounds
+        r0 = engine.round_count
+        if loop_graph:
+            ctrl = engine._prog.graphs.ctrl  # [2]: loop rounds run so far
+            ns0, multis0 = clock()[1], _stats(engine)["dispatch_kinds"]
+            lr0 = int(ctrl[2])
+        spans = []
         t0 = time.perf_counter()
         for _ in range(timed):
-            engine.step()
-        host = (time.perf_counter() - t0) / timed  # before the device drains
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            engine.step(r_dev)
+            b.record()
+            spans.append((a, b))
+        host = time.perf_counter() - t0  # before the device drains
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / timed
-        events = profiled(engine.step,
-                          lambda: [engine.step() for _ in range(rounds)])
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / rounds
+        wall = time.perf_counter() - t0
+        timed_rounds = engine.round_count - r0
+        span_ms = sum(a.elapsed_time(b) for a, b in spans) / timed_rounds
+        if loop_graph:
+            loop_ms = (clock()[1] - ns0) / 1e6 / timed_rounds
+            kinds = _stats(engine)["dispatch_kinds"]
+            loop_rounds = int(ctrl[2]) - lr0
+            if kinds["multi"] - multis0["multi"] != timed \
+                    or kinds["round"] != multis0["round"] \
+                    or loop_rounds != timed_rounds:
+                raise AssertionError(f"{phase}: steps {multis0} -> {kinds}, "
+                                     f"want {timed} multi; the device "
+                                     f"counted {loop_rounds} loop rounds, "
+                                     f"the engine {timed_rounds}")
+        span = []
+
+        def body():
+            span.append(engine.round_count)
+            for _ in range(rounds):
+                engine.step(r_dev)
+            span.append(engine.round_count)
+
+        events = profiled(lambda: engine.step(r_dev), body) \
+            if profile else []
+    if engine.stats()["served"] or timed_rounds < 1:
+        raise AssertionError(f"{phase}: a lane finished inside the steady "
+                             f"window ({engine.round_count} rounds)")
+    wall, host = wall / timed_rounds, host / timed_rounds
+    rec = dict(timed_rounds=timed_rounds, overlap=overlap, r_dev=r_dev,
+               programs=engine.executor.programs,
+               wall_ms_per_round=wall * 1e3, host_ms_per_round=host * 1e3,
+               span_ms_per_round=span_ms,
+               span_idle_share=max(0.0, 1.0 - span_ms / (wall * 1e3)),
+               rounds=None, device_ms_per_round=None,
+               device_idle_share=None, kernels_per_round=None,
+               host_syncs=engine.host_syncs, device_ms_from="profiler")
+    if not profile:
+        ms = loop_ms if loop_graph else span_ms
+        rec.update(rounds=timed_rounds, device_ms_per_round=ms,
+                   device_idle_share=max(0.0, 1.0 - ms / (wall * 1e3)),
+                   device_ms_from="loop clock" if loop_graph
+                   else "event span")
+        emit(phase, **rec)
+        return rec
+    prof_rounds = span[1] - span[0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / prof_rounds
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    ours = _port_kernels(events, rounds)
-    accept = _accept_path_kernels(s * k, 64 * 16, s)
-    rec = dict(rounds=rounds, timed_rounds=timed, overlap=overlap,
-               wall_ms_per_round=wall * 1e3,
-               host_ms_per_round=host * 1e3, device_ms_per_round=busy,
+    ours = _port_kernels(events, prof_rounds)
+    rec.update(rounds=prof_rounds, device_ms_per_round=busy,
                device_idle_share=max(0.0, 1.0 - busy / (wall * 1e3)),
-               host_syncs=engine.host_syncs)
-    emit(phase, **rec, port_kernels=ours, accept_path=accept,
-         top=[{"name": e.key[:80], "calls_per_round": e.count / rounds,
-               "ms_per_round": e.self_device_time_total / 1e3 / rounds}
+               kernels_per_round=sum(
+                   e.count for e in events
+                   if not e.key.startswith(("Memcpy", "Memset")))
+               / prof_rounds)
+    emit(phase, **rec, port_kernels=ours,
+         accept_path=_accept_path_kernels(s * k, 64 * 16, s)
+         if accept_path else None,
+         top=[{"name": e.key[:80], "calls_per_round": e.count / prof_rounds,
+               "ms_per_round": e.self_device_time_total / 1e3 / prof_rounds}
               for e in top])
     _check_profiled_launches(ours, per_call)
     got = ours.get("step_rectify_accept_kernel", {}).get("launches_per_round")
@@ -1109,6 +1373,277 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
         raise AssertionError(f"profile: step_rectify_accept_kernel launched "
                              f"{got} times a round, want 1")
     return rec
+
+
+# CUgraphNodeType (driver API)
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record", 10: "mem_alloc",
+              11: "mem_free", 13: "conditional"}
+
+
+def graph_nodes(raw: int) -> dict:
+    """The nodes of a CUDA graph (a ``cudaGraph_t`` as an int) by type, and
+    its kernel nodes by the port's kernel tags (driver API: the node's
+    function and ``cuFuncGetName``)."""
+    import ctypes
+    from ctypes import byref, c_char_p, c_int, c_size_t, c_uint, c_void_p
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", c_void_p), ("grid", c_uint * 3),
+                    ("block", c_uint * 3), ("smem", c_uint),
+                    ("params", c_void_p), ("extra", c_void_p),
+                    ("kern", c_void_p), ("ctx", c_void_p)]
+
+    def check(what, err):
+        if err:
+            raise AssertionError(f"{what} failed: CUresult {err}")
+
+    graph, n = c_void_p(raw), c_size_t(0)
+    check("cuGraphGetNodes", cu.cuGraphGetNodes(graph, None, byref(n)))
+    nodes = (c_void_p * n.value)()
+    check("cuGraphGetNodes", cu.cuGraphGetNodes(graph, nodes, byref(n)))
+    types, tags = {}, {}
+    for node in nodes:
+        kind = c_int(-1)
+        check("cuGraphNodeGetType",
+              cu.cuGraphNodeGetType(c_void_p(node), byref(kind)))
+        name = NODE_TYPES.get(kind.value, str(kind.value))
+        types[name] = types.get(name, 0) + 1
+        if kind.value != 0:
+            continue
+        p = KernelNodeParams()
+        check("cuGraphKernelNodeGetParams",
+              cu.cuGraphKernelNodeGetParams_v2(c_void_p(node), byref(p)))
+        fname = c_char_p()
+        if p.func:
+            check("cuFuncGetName", cu.cuFuncGetName(byref(fname),
+                                                    c_void_p(p.func)))
+        else:
+            check("cuKernelGetName", cu.cuKernelGetName(byref(fname),
+                                                        c_void_p(p.kern)))
+        for tag in PORT_KERNEL_TAGS:
+            if tag in fname.value.decode():
+                tags[tag] = tags.get(tag, 0) + 1
+    return {"types": types, "port_kernels": tags}
+
+
+def _round_graph(drift, tgrid, n, k, s, per_call, phase):
+    """The round graph's nodes against the eager round's launches: its
+    kernel nodes equal the kernels a profiled eager round launches and the
+    kernel nodes of a graph captured from one eager round
+    (:func:`graph_kernel_nodes`); the port's kernels among them are the
+    backbone's per call and one accept kernel, and one replay runs exactly
+    those (the kernels' own counts)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Request
+    engine = _engine(drift, tgrid, n, k, s, rtol=0.0)
+    grid = engine._prog.graphs
+    nodes = graph_nodes(grid.graph.raw_cuda_graph())
+    reset_launch_counts()
+    with torch.no_grad():
+        grid.round(grid.state)  # an empty grid: the identity
+    replay = launch_counts()
+    eager = _engine(drift, tgrid, n, k, s, True, rtol=0.0)
+    for i in range(s):
+        eager.submit(Request(rid=i, seed=300 + i))
+    with torch.no_grad():
+        eager.step()
+        prog, st = eager._prog, eager.state
+        events = profiled(lambda: prog.round(st), lambda: prog.round(st))
+        eager_nodes = graph_kernel_nodes(lambda: prog.round(st))
+    eager_kernels = sum(e.count for e in events
+                        if not e.key.startswith(("Memcpy", "Memset")))
+    want_tags = {SERVE_TAGS[name]: c for name, c in per_call.items() if c}
+    want_tags["step_rectify_accept_kernel"] = 1
+    rec = dict(kernel_nodes=nodes["types"].get("kernel", 0),
+               node_types=nodes["types"],
+               port_kernel_nodes=nodes["port_kernels"],
+               eager_round_profiled_kernels=eager_kernels,
+               eager_round_profiled_copies=sum(
+                   e.count for e in events
+                   if e.key.startswith(("Memcpy", "Memset"))),
+               eager_round_graph_kernel_nodes=eager_nodes,
+               launches_per_replay=replay,
+               graph_build_s=grid.build_s)
+    emit(phase + "/graph", card=CARD[0], **rec)
+    if not (rec["kernel_nodes"] == eager_kernels == eager_nodes) \
+            or nodes["port_kernels"] != want_tags \
+            or replay != _want(per_call, 1):
+        raise AssertionError(f"{phase}: round graph {rec}, want the port's "
+                             f"kernels {want_tags}")
+
+
+def phase_device_loop(cfg, params, phase="device-loop"):
+    """The multi-round device loop at the launcher defaults (latent (1, 64,
+    16), K=8, S=4, N=50): see the module docstring, phases 11 and 12."""
+    import torch
+    from repro_torch.core import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Request
+    n, k, s, rtol = 50, 8, 4, 0.05
+    tgrid = uniform_tgrid(n, device="cuda")
+    drift = make_drift(params, cfg.replace(use_kernels=True))
+    per_call = per_call_launches(cfg)
+    total: dict = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            total[name] = total.get(name, 0) + c
+
+    # -- the launcher defaults through the synchronous loop ----------------
+    runs, recs = {}, {}
+    for label, eager, r_dev in (("eager-R1", True, 1),
+                                ("graph-R1", False, 1),
+                                ("graph-R8", False, 8)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = _engine(drift, tgrid, n, k, s, eager, rtol=rtol,
+                         policy="fifo")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for i in range(8):
+            engine.submit(Request(rid=i, seed=100 + i))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            done = dict(engine.run_until_drained(max_rounds_on_device=r_dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, st = launch_counts(), _stats(engine)
+        _check_served(list(done.items()), 8, n, (1, 64, 16))
+        rounds = st["rounds_total"]
+        want = _want_sync(per_call, st)
+        if counts != want or (r_dev > 1) != (st["dispatch_kinds"]["multi"]
+                                             > 0):
+            raise AssertionError(f"{phase} {label}: launches {counts} != "
+                                 f"{want} (dispatches "
+                                 f"{st['dispatch_kinds']})")
+        add(counts)
+        grid = engine._prog.graphs
+        runs[label] = (done, st)
+        recs[label] = dict(
+            programs=st["programs"], r_dev=r_dev, rounds=rounds,
+            host_syncs=st["host_syncs"], dispatches=st["dispatch_kinds"],
+            wall_s=wall, s_per_round=wall / rounds,
+            engine_build_s=build_s,
+            graph_build_s=grid.build_s if grid is not None else None,
+            peak_memory_gb_after_build=peak / 1e9, launches=counts)
+        del engine, grid
+    base = runs["eager-R1"]
+    for label, (done, st) in runs.items():
+        for rid, a in base[0].items():
+            b = done[rid]
+            if not (torch.equal(a.sample, b.sample)
+                    and (a.rounds_used, a.accepted_core, a.latency_rounds)
+                    == (b.rounds_used, b.accepted_core, b.latency_rounds)):
+                raise AssertionError(
+                    f"{phase} {label}: request {rid} differs from eager R=1 "
+                    f"(max err {max_err(a.sample, b.sample)})")
+        if st["rounds_total"] != base[1]["rounds_total"]:
+            raise AssertionError(f"{phase} {label}: rounds "
+                                 f"{st['rounds_total']} vs "
+                                 f"{base[1]['rounds_total']}")
+    st8 = runs["graph-R8"][1]
+    if not 2 * st8["host_syncs"] <= st8["rounds_total"]:
+        raise AssertionError(f"{phase}: R=8 host syncs {st8['host_syncs']} "
+                             f"for {st8['rounds_total']} rounds")
+    emit(phase + "/sync", card=CARD[0], bitwise=True, runs=recs)
+
+    # -- the SLA and rollback traces through the overlap loop --------------
+    # R=8 on the graphs against R=1 on the graphs and R=8 on the eager
+    # programs. The SLA trace's arrivals can fall inside a roll, and the
+    # engine (as the JAX package's) submits them at the next step, so its
+    # schedule at R=8 is held to eager R=8; the rollback trace submits
+    # everything at once, so there R=1's schedule must hold too.
+    traces = {}
+    for what, slots, policy, trtol, upfront in (
+            ("sla edf-preempt rtol 0", s, "edf-preempt", 0.0, False),
+            ("rollback", 1, "fifo", 1e-9, True)):
+        res = {}
+        for label, eager, r_dev in (("graph-R1", False, 1),
+                                    ("graph-R8", False, 8),
+                                    ("eager-R8", True, 8)):
+            reqs = ([Request(rid=rid, seed=500 + rid) for rid in (0, 1)]
+                    if upfront else None)
+            done, st, wall, counts = _serve_trace(
+                drift, tgrid, n, k, slots, True, policy, trtol, reqs, r_dev,
+                eager=eager)
+            acc = counts["fused_step_rectify_accept"]
+            kinds = st["dispatch_kinds"]
+            dispatched = st["rounds_total"] + st["speculated_rounds_wasted"]
+            if eager:
+                # the eager roll stops when no lane is live (a lane accepted
+                # before its predicted round): at most the rounds the host
+                # dispatched, the condition once at entry and once a round
+                ok = 0 < acc <= dispatched
+                loop = kinds["roll"] + acc - kinds["round"]
+            else:
+                # the graph roll replays the round k times
+                ok, loop = acc == dispatched, 0
+            if not ok or kinds["multi"] or (r_dev == 1) != (
+                    kinds["roll"] == 0) or counts != _want(per_call, acc,
+                                                           loop=loop):
+                raise AssertionError(f"{phase} {what} {label}: launches "
+                                     f"{counts}, {dispatched} rounds, "
+                                     f"dispatches {kinds}")
+            add(counts)
+            res[label] = (done, st, wall)
+        d1 = res["graph-R1"][0]
+        for label, (done, st, _) in res.items():
+            for rid, a in d1.items():
+                b = done[rid]
+                if not (torch.equal(a.sample, b.sample)
+                        and (a.rounds_used, a.accepted_core)
+                        == (b.rounds_used, b.accepted_core)):
+                    raise AssertionError(
+                        f"{phase} {what}: request {rid} {label} vs graph "
+                        f"R=1 (max err {max_err(a.sample, b.sample)})")
+        same = [("graph-R8", "eager-R8")] + (
+            [("graph-R8", "graph-R1")] if upfront else [])
+        for a, b in same:
+            sa, sb = res[a][1], res[b][1]
+            for key in SPEC_KEYS[:8] + ("served",):
+                if key != "dispatches" or b != "graph-R1":
+                    if sa[key] != sb[key]:
+                        raise AssertionError(f"{phase} {what}: {key} "
+                                             f"{sa[key]} {a}, {sb[key]} {b}")
+        traces[what] = {label: dict(
+            programs=st["programs"], wall_s=w,
+            s_per_round=w / st["rounds_total"],
+            **{key: st[key] for key in SPEC_KEYS})
+            for label, (_, st, w) in res.items()}
+    traces["no_sync_R8"] = no_sync_count(lambda: _serve_trace(
+        drift, tgrid, n, k, s, True, "edf-preempt", 0.0, None, 8),
+        f"{phase} no-sync R=8")
+    emit(phase + "/overlap", card=CARD[0], bitwise=True, traces=traces)
+
+    _round_graph(drift, tgrid, n, k, s, per_call, phase)
+
+    # -- a steady window of each program kind, in each loop ----------------
+    steady = {}
+    for overlap in (False, True):
+        for label, eager, r_dev, timed, rounds in (
+                ("eager-R1", True, 1, 10, 3), ("graph-R1", False, 1, 10, 3),
+                ("graph-R8", False, 8, 5, 1)):
+            loop = "overlap" if overlap else "sync"
+            steady[f"{loop}/{label}"] = profile_rounds(
+                drift, tgrid, n, k, s, f"{phase}/steady-{loop}-{label}",
+                per_call, rounds=rounds, overlap=overlap, timed=timed,
+                eager=eager, r_dev=r_dev, accept_path=False)
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, card=CARD[0],
+         steady={key: {f: v[f] for f in (
+             "wall_ms_per_round", "host_ms_per_round", "span_ms_per_round",
+             "span_idle_share", "device_ms_per_round", "device_idle_share",
+             "kernels_per_round", "rounds", "timed_rounds", "host_syncs",
+             "device_ms_from")}
+             for key, v in steady.items()})
+    return total
 
 
 def _accept_path_kernels(rows, m, p):
@@ -1188,12 +1723,19 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:86"),
     "ssd_chunk": ("src/repro_torch/csrc/ssd_scan.cu",
                   "src/repro/kernels/ssd_scan/kernel.py:63"),
+    # not a Pallas kernel: the cond of the multi-round lax.while_loop
+    "device_loop": ("src/repro_torch/csrc/device_loop.cu",
+                    "src/repro/serve/executor.py:353"),
 }
-# the kernels each serving path runs (the hybrid's adds ssd_chunk)
-SERVE_KERNELS = {"serve": set(SOURCES) - {"ssd_chunk"},
-                 "overlap-serve": {"fused_step_rectify_accept", "rmsnorm",
-                                   "flash_attention"},
-                 "hybrid-serve": set(SOURCES)}
+# the kernels each serving path runs (the hybrid's add ssd_chunk)
+_CONTINUOUS = {"fused_step_rectify_accept", "rmsnorm", "flash_attention"}
+SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
+                 "overlap-serve": _CONTINUOUS,
+                 "device-loop": _CONTINUOUS | {"device_loop"},
+                 "hybrid-serve": _CONTINUOUS | {"fused_step_rectify",
+                                                "ssd_chunk"},
+                 "hybrid-device-loop": _CONTINUOUS | {"device_loop",
+                                                      "ssd_chunk"}}
 
 
 def main(argv=None) -> int:
@@ -1231,9 +1773,11 @@ def main(argv=None) -> int:
     for arch, drift_phase, paths in (
             ("chords-dit-xl", "drift", (("serve", phase_serve),
                                         ("overlap-serve",
-                                         phase_overlap_serve))),
-            ("zamba2-2.7b", "hybrid-drift", (("hybrid-serve",
-                                              phase_serve),))):
+                                         phase_overlap_serve),
+                                        ("device-loop", phase_device_loop))),
+            ("zamba2-2.7b", "hybrid-drift", (("hybrid-serve", phase_serve),
+                                             ("hybrid-device-loop",
+                                              phase_device_loop)))):
         if arch == "zamba2-2.7b" and "ssd" in phases:
             phase_ssd()
         if not ({drift_phase} | {p for p, _ in paths}) & set(phases):

@@ -47,6 +47,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;
@@ -93,6 +95,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
                  int nh, int nkv, float scale, int causal) {
+  count_launch(0);
   extern __shared__ float smem[];
   float* sQ = smem;                       // [kBQ][DH+1]
   float* sK = sQ + kBQ * (DH + 1);        // [kBK][DH+1]
@@ -301,6 +304,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, int sq, int sk, int nh,
                      int nkv, float scale_log2, int causal) {
+  count_launch(0);
   using Tile = MmaTile<DH>;
   constexpr int LD = Tile::LD;
   constexpr int KD = DH / 16;  // k16 steps of QK^T; n16 pairs of PV

@@ -40,6 +40,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#define LAUNCH_COUNT_SLOTS 2  // 0 step, 1 accept
+#include "launch_count.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -65,6 +68,7 @@ __global__ void __launch_bounds__(kThreads) step_rectify_kernel(
     const float* __restrict__ xs, const float* __restrict__ fs,
     const float* __restrict__ dt, const float* __restrict__ ds,
     const uint8_t* __restrict__ fire, float* __restrict__ out, int64_t m) {
+  count_launch(0);
   const int64_t row = blockIdx.y;
   const int64_t c =
       ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * (int64_t)VEC;
@@ -120,6 +124,7 @@ __global__ void __launch_bounds__(kThreads) step_rectify_accept_kernel(
     const float* __restrict__ ds, const uint8_t* __restrict__ fire,
     float* __restrict__ out, float* __restrict__ err_sq,
     float* __restrict__ out_sq, int64_t m, int64_t group, int64_t span) {
+  count_launch(1);
   cg::cluster_group cluster = cg::this_cluster();
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const unsigned rank = cluster.block_rank();

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kMaxVecs = 4;         // vectors a thread holds of a row
@@ -146,6 +148,7 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks)
     rmsnorm_rows_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                         TX* __restrict__ y, int64_t rows, int d, float eps,
                         int nv) {
+  count_launch(0);
   extern __shared__ __align__(16) unsigned char smem[];
   TW* ws = reinterpret_cast<TW*>(smem);  // w, staged once for the block
   __shared__ float part[kBlockThreads / 32];
@@ -196,6 +199,7 @@ template <typename TX, typename TW, int VEC>
 __global__ void __launch_bounds__(kBlockThreads)
     rmsnorm_sweep_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                          TX* __restrict__ y, int d, float eps) {
+  count_launch(0);
   __shared__ float part[kBlockThreads / 32];
   const int t = threadIdx.x, nvec = d / VEC;
   const int warps = blockDim.x / 32, warp = t / 32, lane = t % 32;

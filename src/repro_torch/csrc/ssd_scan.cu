@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kT = 64;  // rows of an l-tile and of an m-tile
@@ -151,6 +153,7 @@ ssd_chunk_kernel(const float* __restrict__ cmat, const float* __restrict__ bmat,
                  const float* __restrict__ xdt, const float* __restrict__ cum,
                  float* __restrict__ y, float* __restrict__ s, int nh, int lc,
                  int hg) {
+  count_launch(0);
   using S = Smem<N, HD>;
   extern __shared__ __align__(16) float smem[];
   const int n_tiles = (lc + kT - 1) / kT;

@@ -9,11 +9,13 @@ PyTorch's headers:
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The library is built at first use into ``build/kernels/`` at the repository
-root (``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by a hash of the source
-and the flags, so editing a source rebuilds and an unchanged one loads the
-cached ``.so``. :func:`build_all` starts one ``nvcc`` per source at once.
-Nothing here runs at import time: this module is imported on hosts that
-have no ``nvcc``.
+root (``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by a hash of the
+source, the shared headers (``csrc/*.cuh``) and the flags, so editing a
+source rebuilds and an unchanged one loads the cached ``.so``.
+:func:`build_all` starts one ``nvcc`` per source at once. Every family
+includes ``csrc/launch_count.cuh``: its kernels count their own launches on
+the device (:func:`launch_counts`). Nothing here runs at import time: this
+module is imported on hosts that have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-FAMILIES = ("rectify", "rmsnorm", "flash_attention", "ssd_scan")
+FAMILIES = ("rectify", "rmsnorm", "flash_attention", "ssd_scan",
+            "device_loop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,7 +60,9 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{name}-{digest[:16]}.so"
 
@@ -132,6 +137,23 @@ def stream_handle(device_index: int) -> int:
     once per kernel launch."""
     import torch
     return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+def launch_counts(name: str, n: int, reset: bool = False) -> list:
+    """The first ``n`` device launch counters of family ``name`` on the
+    current device (``csrc/launch_count.cuh``), zeroed afterwards with
+    ``reset``; zeros when the library was never loaded in this process (no
+    kernel of it can have run). A synchronous copy: it waits for the
+    device."""
+    lib = _libs.get(name)
+    if lib is None:
+        return [0] * n
+    out = (ctypes.c_ulonglong * n)()
+    fn = lib.launch_counts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    check(lib, name, fn(out, n, int(bool(reset))))
+    return list(out)
 
 
 def ptr(t) -> ctypes.c_void_p:

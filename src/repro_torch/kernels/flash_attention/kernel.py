@@ -14,7 +14,7 @@ the 2e-5 contract), bound by its shared-memory operand traffic. Sq/Sk
 tails are masked in the kernels. Head dims 16, 32, 64, 80 and 128 are
 compiled (80: ``zamba2-2.7b``'s shared block; 16: its reduced config).
 CUDA tensors only; ``ops.py`` picks the plain version for CPU tensors.
-Launches are counted in ``flash_attention.launches``.
+The kernels count their launches on the device (``kernels.launch_counts``).
 """
 from __future__ import annotations
 
@@ -66,8 +66,4 @@ def flash_attention(q, k, v, causal: bool = True,
         b, sq, sk, h, kvh, dh, float(scale), int(bool(causal)),
         DTYPE_CODES[q.dtype], build.stream_handle(q.get_device()))
     build.check(lib, "flash_attention", err)
-    flash_attention.launches += 1
     return out
-
-
-flash_attention.launches = 0

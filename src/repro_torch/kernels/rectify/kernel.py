@@ -17,7 +17,8 @@ packed word) and the stream as plain ints, and read ``fire`` as the bool
 tensor's bytes.
 
 These wrappers take CUDA tensors only; ``ops.py`` picks the plain version
-for CPU tensors. Each counts its launches in ``<wrapper>.launches``.
+for CPU tensors. Each kernel counts its launches on the device
+(``kernels.launch_counts``).
 """
 from __future__ import annotations
 
@@ -134,11 +135,7 @@ def fused_step_rectify(x, f, x_up, f_up, x_snap, f_snap, dt, dsnap, fire):
                      build.stream_handle(dev))
     if err:
         build.check(_lib(), "rectify", err)
-    fused_step_rectify.launches += 1
     return out
-
-
-fused_step_rectify.launches = 0
 
 
 class AcceptPlan(NamedTuple):
@@ -196,8 +193,4 @@ def fused_step_rectify_accept(x, f, x_up, f_up, x_snap, f_snap, prev,
         cluster | threads << 4 | vec << 16, build.stream_handle(dev))
     if err:
         build.check(_lib(), "rectify", err)
-    fused_step_rectify_accept.launches += 1
     return out, *sums.unbind()
-
-
-fused_step_rectify_accept.launches = 0

@@ -23,8 +23,8 @@ round: no reshape or copy of a contiguous input, one ``torch.empty_like``,
 pointers and the current stream's raw handle passed as plain ints, the
 dtypes and the plan packed into one cached int (:func:`launch_config`), so
 the ctypes call takes eight arguments. CUDA tensors only; ``ops.py``
-picks the plain version for CPU tensors. Launches are counted in
-``rmsnorm.launches``.
+picks the plain version for CPU tensors. The kernels count their launches
+on the device (``kernels.launch_counts``).
 """
 from __future__ import annotations
 
@@ -120,8 +120,4 @@ def rmsnorm(x, w, eps: float = 1e-6):
                  build.stream_handle(x.get_device()))
     if err:
         build.check(build.load("rmsnorm"), "rmsnorm", err)
-    rmsnorm.launches += 1
     return out
-
-
-rmsnorm.launches = 0

@@ -16,7 +16,8 @@ and the two add up (``benchmarks/torch_kernel_ablation.py``). N and hd
 must each be one of
 ``DIMS``; Lc may be anything up to ``MAX_LC`` (the tail is masked in the
 kernel). CUDA tensors only; ``ops.py`` picks the plain version for CPU
-tensors. Launches are counted in ``ssd_chunk.launches``.
+tensors. The kernel counts its launches on the device
+(``kernels.launch_counts``).
 """
 from __future__ import annotations
 
@@ -74,8 +75,4 @@ def ssd_chunk(c_mat, b_mat, xdt, cum):
                             build.ptr(uc), build.ptr(y), build.ptr(s), g, h,
                             lc, n, hd, build.stream_handle(xdt.get_device()))
     build.check(lib, "ssd_scan", err)
-    ssd_chunk.launches += 1
     return y, s
-
-
-ssd_chunk.launches = 0

@@ -10,19 +10,25 @@ block and the fused step+rectify(+accept) round through the port's CUDA
 kernels (their plain versions on ``--device cpu``). ``--overlap`` serves
 with the double-buffered speculative host loop
 (``ContinuousEngine(overlap=True)``): the next round is enqueued before
-the previous round's done flags are read back.
+the previous round's done flags are read back. ``--device-rounds R`` lets
+one device program run up to R rounds: the synchronous loop reads the
+flags back once per program (it leaves at the first accept), the overlap
+loop rolls up to R rounds no lane can finish in. On CUDA every round
+program is one CUDA graph launch (the loops need a CUDA 12.4 runtime and
+driver).
 
   python -m repro_torch.launch.serve --steps 50 --cores 8 --slots 4 \
       --use-kernels
   python -m repro_torch.launch.serve --arch zamba2-2.7b --use-kernels
   python -m repro_torch.launch.serve --use-kernels --overlap
+  python -m repro_torch.launch.serve --use-kernels --device-rounds 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --reduced --device cpu
 
 Flags of the reference not honored yet (``--min-slots``, ``--max-slots``,
-``--device-rounds``, ``--lane-mode``, ``--trace-out``) belong to
-ROADMAP.md queue 1 items 6-9.
+``--lane-mode``, ``--trace-out``) belong to ROADMAP.md queue 1 items 6, 7
+and 9.
 """
 from __future__ import annotations
 
@@ -60,6 +66,9 @@ def main(argv=None):
     ap.add_argument("--overlap", action="store_true",
                     help="async double-buffered host loop: speculate the "
                          "next round's admissions, verify one round late")
+    ap.add_argument("--device-rounds", type=int, default=1,
+                    help="rounds one device program may run per host "
+                         "readback (the multi-round device loop)")
     ap.add_argument("--use-kernels", action="store_true",
                     help="route RMSNorm, attention, the SSD chunk block "
                          "and the fused CHORDS round through the port's "
@@ -113,7 +122,9 @@ def main(argv=None):
         for i in range(args.requests):
             engine.submit(Request(rid=i, seed=100 + i,
                                   deadline_rounds=args.deadline_rounds))
-        done = engine.run_until_drained()
+        done = engine.run_until_drained(
+            max_rounds_on_device=args.device_rounds)
+    print(f"[serve] device_rounds={args.device_rounds}")
     for rid, out in done:
         print(f"[serve] request {rid:>3}: core {out.accepted_core} after "
               f"{out.rounds_used}/{args.steps} rounds ({out.speedup:.2f}x, "

@@ -11,18 +11,21 @@ live slot, reads the done flags back in one transfer and drains finished
 slots. With ``overlap=True`` the same contract is served by the
 double-buffered speculative host loop: the next round is enqueued before
 the previous round's flags are read, and while no lane is due to finish
-nothing is read back at all.
+nothing is read back at all. ``step(max_rounds_on_device=R)`` runs up to R
+rounds as one device program: the synchronous loop leaves it at the first
+accept (``multi``, one readback however many rounds ran), the overlap
+loop's fast path rolls up to R rounds no lane can finish in (``roll``, no
+readback). On CUDA each is one CUDA graph launch (``serve/graphs.py``).
 
 Noise: a :class:`Request` carries ``seed`` — its init noise is drawn on the
 engine's device from ``torch.Generator(device).manual_seed(seed)`` — or an
 explicit ``x0``; the parity tests inject the JAX package's draws through
 ``x0`` (``jax.random`` streams cannot be reproduced in torch).
 
-Ported: the synchronous and the overlap engine (``max_rounds_on_device``
-1) with FIFO / EDF / EDF-preempt. Not yet (each raises
+Ported: the synchronous and the overlap engine, with the multi-round
+device loop, under FIFO / EDF / EDF-preempt. Not yet (each raises
 ``NotImplementedError``): elastic ``min_slots``/``max_slots`` (ROADMAP.md
-queue 1 item 6), ``lane_profile`` (item 7), ``max_rounds_on_device > 1``
-(item 8), ``write_trace`` (item 9).
+queue 1 item 6), ``lane_profile`` (item 7), ``write_trace`` (item 9).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import contextlib
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -220,12 +223,12 @@ class ChordsEngine:
 class _DecisionUndo:
     """Host-side inverse of one speculatively applied :class:`Decision`.
 
-    The device side of a rollback is the engine reinstating the retained
-    pre-decision ``SlotState`` (the programs are functional: the admit and
-    round programs allocate new tensors and never write their inputs, so
-    those stay readable while the engine holds them). This record undoes
-    the *host* effects: queue membership, preemption credit and counters,
-    and the per-slot mirrors.
+    The device side of a rollback is the engine reinstating the
+    pre-decision ``SlotState`` it kept (``GridPrograms.keep``: a device
+    copy on the graph path, whose programs write their state in place; the
+    state itself on the eager path, whose programs never write their
+    inputs). This record undoes the *host* effects: queue membership,
+    preemption credit and counters, and the per-slot mirrors.
     """
 
     admissions: List[tuple]          # (slot, item) admitted -> re-queue
@@ -244,6 +247,10 @@ class ContinuousEngine:
     round for every live slot; (3) ``done``/``rounds_used``/``chosen`` come
     back in ONE device->host transfer (``host_syncs`` counts these) and
     finished slots drain, their results gathered in one more transfer.
+
+    ``step(max_rounds_on_device=R)`` amortizes the host over up to R rounds
+    (:meth:`_step_sync`, :meth:`_step_overlap`) with the same samples and
+    schedule as R = 1.
 
     ``overlap=True`` serves the same contract with the double-buffered
     speculative loop (:meth:`_step_overlap`); its samples, rounds and
@@ -534,39 +541,47 @@ class ContinuousEngine:
              self._admit_wall[slot]) = prior
             self._slot_rtol[slot] = rtol
 
+    def _amortizable(self) -> bool:
+        """May the host stay away for several rounds? Yes when nothing it
+        could do between rounds matters: the queue is empty, or every slot
+        is busy and the policy never preempts (then the next admission
+        opportunity IS the next accept, which exits the device loop)."""
+        if len(self.queue) == 0:
+            return True
+        if self.policy.preemptive:
+            return False  # preemption decisions are made between rounds
+        return not any(it is None for it in self._slot_item)
+
     # -- round-gap timer ------------------------------------------------------
 
-    def _mark_dispatch(self, live: int) -> Tuple[float, object]:
-        """Called just before a round is enqueued: records the host gap
-        since the previous dispatch returned and opens a profiler range.
-        PyTorch enqueues kernels asynchronously, so this times the host's
-        enqueue, not the device's completion: it is the time a busy grid
-        waited for the host only when the device had run dry. The device
-        idle share comes from the profiler, not from this timer."""
+    def _dispatch(self, live: int, kind: str = "round", rounds: int = 1):
+        """Enqueue the grid program ``kind`` (``round``, or ``roll`` /
+        ``multi`` with a budget of ``rounds``) on the current state and
+        return what it returns, inside a profiler range
+        ``dispatch/<kind>``, counted in ``serve.dispatches.<kind>``.
+        Records the host gap since the previous
+        dispatch returned: PyTorch enqueues asynchronously, so this times
+        the host's enqueue, not the device's completion; it is the time a
+        busy grid waited for the host only when the device had run dry. The
+        device idle share comes from the profiler, not from this timer."""
         t = time.monotonic()
         if self._last_dispatch_done is not None:
             self._h_gap.observe(max(0.0, t - self._last_dispatch_done))
         self._c_dispatches.inc()
-        rng = torch.profiler.record_function("dispatch/round")
-        rng.__enter__()
-        return self.tracer.now(), rng
-
-    def _dispatch_done(self, t0: float, rng, live: int) -> None:
-        rng.__exit__(None, None, None)
+        self.metrics.counter(f"serve.dispatches.{kind}").inc()
+        t0 = self.tracer.now()
+        prog = getattr(self._prog, kind)
+        with torch.profiler.record_function(f"dispatch/{kind}"):
+            out = prog(self.state) if kind == "round" \
+                else prog(self.state, rounds)
         self._last_dispatch_done = time.monotonic()
         if self.tracer.enabled:
-            self.tracer.span("dispatch/round", t0, round_idx=self.round_count,
-                             rounds=1, live=live)
+            self.tracer.span(f"dispatch/{kind}", t0,
+                             round_idx=self.round_count, rounds=rounds,
+                             live=live)
             self.tracer.counter("occupancy", live)
             self.tracer.counter("queue_depth", len(self.queue))
-
-    def _dispatch(self, live: int):
-        """Enqueue one lockstep round on the current state; returns the new
-        state (the old one stays readable)."""
-        t0, rng = self._mark_dispatch(live)
-        state = self._prog.round(self.state)
-        self._dispatch_done(t0, rng, live)
-        return state
+        return out
 
     def _finish_lane(self, item: QueueItem, i_seq, ru: int, chosen_k: int,
                      sample, acc_round: int, slot: int = -1,
@@ -606,22 +621,21 @@ class ContinuousEngine:
 
     def step(self, max_rounds_on_device: int = 1
              ) -> list[tuple[int, SampleOut]]:
-        """Policy decision -> one lockstep round -> drain. Returns finished
+        """Policy decision -> lockstep round(s) -> drain. Returns finished
         requests as [(rid, SampleOut)]; with ``overlap=True`` through the
-        speculative loop (:meth:`_step_overlap`)."""
-        if int(max_rounds_on_device) > 1:
-            raise _not_ported("max_rounds_on_device > 1", 8,
-                              "the multi-round device loop")
+        speculative loop (:meth:`_step_overlap`). ``max_rounds_on_device``
+        R > 1 lets one device program run up to R rounds."""
         if self.overlap:
-            return self._step_overlap()
-        return self._step_sync()
+            return self._step_overlap(max_rounds_on_device)
+        return self._step_sync(max_rounds_on_device)
 
-    def _count_round(self, live_ct: int) -> None:
-        self._c_live.inc(live_ct)
-        self._c_slot_rounds.inc(self.s)
-        self._c_wasted.inc(self.s - live_ct)
+    def _count_rounds(self, live_ct: int, ran: int = 1) -> None:
+        self._c_live.inc(live_ct * ran)
+        self._c_slot_rounds.inc(self.s * ran)
+        self._c_wasted.inc((self.s - live_ct) * ran)
 
-    def _step_sync(self) -> list[tuple[int, SampleOut]]:
+    def _step_sync(self, max_rounds_on_device: int = 1
+                   ) -> list[tuple[int, SampleOut]]:
         free = [i for i, it in enumerate(self._slot_item) if it is None]
         if len(self.queue) and (free or self.policy.preemptive):
             view = EngineView(now=self.round_count, queue=self.queue,
@@ -633,17 +647,26 @@ class ContinuousEngine:
             return []
 
         live_ct = sum(it is not None for it in self._slot_item)
-        self.state = self._dispatch(live_ct)
+        r_dev = max(1, int(max_rounds_on_device))
+        if r_dev > 1 and self._amortizable():
+            self.state, ran_dev = self._dispatch(live_ct, "multi", r_dev)
+        else:
+            self.state, ran_dev = self._dispatch(live_ct), None
         t0 = self.tracer.now()
-        flags = torch.stack((self.state.done.to(torch.int32),
-                             self.state.rounds_used,
-                             self.state.chosen)).cpu().numpy()  # ONE sync
-        done, rounds_used, chosen = flags[0].astype(bool), flags[1], flags[2]
+        st = self.state
+        flags = torch.stack((st.done.to(torch.int32), st.rounds_used,
+                             st.chosen)).reshape(-1)
+        if ran_dev is not None:
+            flags = torch.cat((flags, ran_dev.reshape(1)))
+        flags = flags.cpu().numpy()  # ONE sync
+        ran = int(flags[-1]) if ran_dev is not None else 1
+        done = flags[:self.s].astype(bool)
+        rounds_used, chosen = flags[self.s:2 * self.s], flags[2 * self.s:]
         self.tracer.span("verify/readback", t0, round_idx=self.round_count,
                          live=live_ct)
         self._c_host_syncs.inc()
-        self.round_count += 1
-        self._count_round(live_ct)
+        self.round_count += ran
+        self._count_rounds(live_ct, ran)
 
         out: list[tuple[int, SampleOut]] = []
         drain = [slot for slot in range(self.s)
@@ -669,17 +692,20 @@ class ContinuousEngine:
 
     @contextlib.contextmanager
     def _no_sync(self):
-        """With ``guard_syncs`` on CUDA, raise on any synchronizing CUDA
-        call inside the block."""
-        if not (self.guard_syncs and self.device.type == "cuda"):
-            yield
-            return
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
+        """The span that must not wait for the device (speculate ->
+        dispatch, and the fast path's dispatch), as the profiler range
+        ``overlap/no_sync``; with ``guard_syncs`` on CUDA, any synchronizing
+        CUDA call inside it raises."""
+        with torch.profiler.record_function("overlap/no_sync"):
+            if not (self.guard_syncs and self.device.type == "cuda"):
+                yield
+                return
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
 
     def _enqueue_readback(self, st, due: List[int]):
         """Enqueue the verify readback of ``st``: its flags and the due
@@ -714,12 +740,15 @@ class ContinuousEngine:
             res = self._rb_result[:n].clone()  # the buffer is reused
         return flags[0].astype(bool), flags[1], flags[2], res
 
-    def _step_overlap(self) -> list[tuple[int, SampleOut]]:
+    def _step_overlap(self, max_rounds_on_device: int = 1
+                      ) -> list[tuple[int, SampleOut]]:
         """One overlap step: speculate -> dispatch -> verify -> reconcile.
 
         Occupied lanes are classed by the cost model's predicted accept
-        round (``_pred_done``). While no lane is *due*, the next round is
-        enqueued with NO readback (the fast path). When a lane is due, the
+        round (``_pred_done``). While no lane is *due*, up to
+        ``max_rounds_on_device`` rounds are enqueued as one program with NO
+        readback (the fast path; clipped so the next predicted accept still
+        lands on a step boundary). When a lane is due, the
         host enqueues the readback of the state in flight, decides the
         next round against the *predicted* post-drain state (due lanes
         presumed finished), applies the decision speculatively, enqueues
@@ -734,7 +763,7 @@ class ContinuousEngine:
           one discarded device round, counted in
           ``speculation_rollbacks`` / ``speculated_rounds_wasted``.
 
-        Drained results come from the retained pre-round state, and their
+        Drained results come from the kept pre-round state, and their
         latency/deadline accounting uses ``admit_round + rounds_used``:
         the synchronous loop's numbers, whenever the host discovers the
         accept.
@@ -752,17 +781,21 @@ class ContinuousEngine:
             bool(free or due or self.policy.preemptive)
 
         if not due and not want_decide:
-            # fast path: nothing can finish and nothing to decide; read
-            # NOTHING back
+            # fast path: nothing can finish and nothing to decide; roll up
+            # to R rounds in one program, clipped so the next predicted
+            # accept lands on a step boundary; read NOTHING back
+            r_dev = max(1, int(max_rounds_on_device))
+            horizon = min(self._pred_done[s] - now for s in occupied)
+            k = max(1, min(r_dev, horizon))
             with self._no_sync():
-                self.state = self._dispatch(len(occupied))
-            self.round_count = now + 1
-            self._count_round(len(occupied))
+                self.state = self._dispatch(len(occupied),
+                                            "roll" if k > 1 else "round", k)
+            self.round_count = now + k
+            self._count_rounds(len(occupied), k)
             return []
 
         # -- event step: speculate + dispatch ahead of the verify ----------
         need_verify = bool(due)
-        prev = self.state
         # drain metadata BEFORE the decision may overwrite it (a confirmed
         # speculative admission re-targets the due slot in the same step)
         due_meta = {s: (self._slot_item[s], self._slot_iseq[s],
@@ -770,9 +803,13 @@ class ContinuousEngine:
                     for s in due}
         dec, undo, spec_admits = Decision(), None, []
         dispatched = None
+        prev = pending = None
         with self._no_sync():
-            pending = self._enqueue_readback(prev, due) if need_verify \
-                else None
+            if need_verify:
+                # the pre-decision state, kept for the verify readback and
+                # for a rollback (the graph programs write theirs in place)
+                prev = self._prog.keep(self.state)
+                pending = self._enqueue_readback(prev, due)
             if want_decide:
                 view = EngineView(
                     now=now, queue=self.queue,
@@ -819,7 +856,7 @@ class ContinuousEngine:
                     self._c_spec_wasted.inc()
                     self.round_count = now
                 dispatched = None
-                self.state = prev
+                self.state = self._prog.restore(prev)
                 self._undo_decision(undo)
                 out += self._drain_due(due, due_meta, done, rounds_used,
                                        chosen, due_res)
@@ -860,15 +897,15 @@ class ContinuousEngine:
 
         if dispatched is not None:
             self.state = dispatched
-            self._count_round(sum(it is not None for it in self._slot_item))
+            self._count_rounds(sum(it is not None for it in self._slot_item))
         if not self.has_inflight:
             self._last_dispatch_done = None
         return out
 
     def _drain_due(self, due, due_meta, done, rounds_used, chosen,
                    due_res) -> list[tuple[int, SampleOut]]:
-        """Drain the due lanes whose accept fired, from the retained
-        pre-round state's readback. A slot whose speculative re-admission
+        """Drain the due lanes whose accept fired, from the kept pre-round
+        state's readback. A slot whose speculative re-admission
         was confirmed already carries its NEW item in the mirrors: the old
         lane's identity comes from ``due_meta`` and the slot stays taken."""
         out = []
@@ -960,6 +997,7 @@ class ContinuousEngine:
             "lane_skip_rate": {m: self.cost.skip_rate(m)
                                for m in ("adaptive", "draft")},
             "kernel_path": self.executor.kernel_path,
+            "programs": self.executor.programs,
             "accept_rounds_observed": self.cost.accept_table_json(),
         }
 

@@ -1,13 +1,26 @@
 """Round executor: the serve programs behind one keyed cache — port of
 ``repro.serve.executor``.
 
-A :class:`GridSpec` names a slot grid (S, K, latent shape, dtype) and keys a
-bounded LRU cache of its program set — the lockstep ``round``, the masked
+A :class:`GridSpec` names a slot grid (S, K, latent shape, dtype, and an
+optional static cap on the multi-round loop) and keys a bounded LRU cache
+of its program set — the lockstep ``round``, the multi-round ``multi``
+(exits at the first new accept) and ``roll`` (no accept exit), the masked
 ``admit`` and ``init_state``; a :class:`StreamSpec` keys the batch
-streaming-accept program (``StreamingSampler``'s). PyTorch runs eagerly, so
-a "program" is the Python closure built for one spec; ``retraces`` /
+streaming-accept program (``StreamingSampler``'s). ``retraces`` /
 ``stream_traces`` count cache misses exactly as the reference counts jit
 traces (one per distinct spec ever, cache hits thereafter).
+
+Two kinds of program set, named by ``RoundExecutor.programs``:
+
+- ``"graph"`` (the default on CUDA): ``round`` and ``multi`` are one CUDA
+  graph launch each over static state buffers (``serve/graphs.py``, the
+  counterpart of ``jax.jit``), ``multi``'s exit decided on the device;
+  ``roll`` is k launches of the round graph. A capture or instantiation
+  error raises.
+- ``"eager"`` (the CPU, or ``eager=True``): Python closures over the
+  same round body; ``multi``/``roll`` are a Python loop over ``round`` with
+  the device loop's condition (``kernels/device_loop``). They are the plain
+  version the graphs are held to, and the source of the round's capture.
 
 ``use_kernel=True`` builds the slot round on the fused step + rectify +
 accept kernel (``repro_torch.kernels.rectify``): the accept sums leave the
@@ -15,8 +28,9 @@ kernel as [S, K] scalars and ``accept_from_sums`` finishes the decision.
 On the CPU the kernel's plain version runs and outputs are bitwise those of
 ``use_kernel=False``; ``kernel_path`` names which implementation served.
 
-Not ported yet: the multi-round device loop and ``roll`` (ROADMAP.md queue
-1 item 8), lane migration (item 6), heterogeneous lane grids (item 7).
+Not ported yet: the batch streaming program's device loop (ROADMAP.md
+queue 1 item 8b), lane migration (item 6), heterogeneous lane grids
+(item 7).
 """
 from __future__ import annotations
 
@@ -32,18 +46,26 @@ from repro_torch.core.chords import (ChordsCarry, accept_from_sums,
                                      accept_test, bmask, chords_init_carry,
                                      make_round_body, make_slot_round_body,
                                      reset_slots, slot_init_carry)
+from repro_torch.kernels.device_loop.ops import loop_step
+from repro_torch.kernels.device_loop.ref import EXIT_ON_ACCEPT, FIRST
 from repro_torch.obs import NULL_TRACER, MetricsRegistry
 from repro_torch.utils.convert import torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
 class GridSpec:
-    """Hashable name of one slot grid — the program-cache key."""
+    """Hashable name of one slot grid — the program-cache key.
+
+    ``device_rounds`` is an optional static CAP on the multi-round loop:
+    ``multi`` never runs more than this many rounds a call, whatever budget
+    it is called with. ``None`` (the default, and what the engines pass)
+    leaves the budget to the call, so varying R never rebuilds."""
 
     num_slots: int
     num_cores: int
     latent_shape: Tuple[int, ...]
     dtype: str = "float32"
+    device_rounds: Optional[int] = None
 
     def __post_init__(self):
         object.__setattr__(self, "latent_shape", tuple(self.latent_shape))
@@ -82,12 +104,30 @@ class SlotState(NamedTuple):
 
 
 class GridPrograms(NamedTuple):
-    """One GridSpec's program set (shared via the executor cache)."""
+    """One GridSpec's program set (shared via the executor cache).
+
+    The graph programs advance one set of static state buffers in place,
+    so a caller that must read or reinstate an earlier state (the overlap
+    engine's verify and rollback) takes it with ``keep`` and puts it back
+    with ``restore``; the eager programs are functional (they never write
+    their inputs), so there ``keep`` and ``restore`` return their
+    argument."""
 
     spec: GridSpec
     round: Callable       # (SlotState) -> SlotState
+    roll: Callable        # (SlotState, k) -> SlotState: k rounds, no accept exit
+    multi: Callable       # (SlotState, max_rounds) -> (SlotState, ran [] int32)
     admit: Callable       # (SlotState, mask, x0, i_arr, rtol) -> SlotState
     init_state: Callable  # () -> SlotState
+    keep: Callable        # (SlotState) -> a copy later programs leave alone
+    restore: Callable     # (kept SlotState) -> SlotState
+    close: Callable       # () -> None: free the programs' device memory
+    graphs: object = None  # serve.graphs.GraphGrid on the graph path
+
+
+def state_tensors(st: SlotState) -> list:
+    """Every tensor of ``st``, in a fixed order."""
+    return [*st.carry, *st[1:]]
 
 
 def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
@@ -181,14 +221,53 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
             rounds_used=zs(torch.int32), chosen=zs(torch.int32),
         )
 
-    return {"round": round_fn, "admit": admit_fn, "init_state": init_state}
+    def _loop(st: SlotState, budget: int, flags: int):
+        """Up to ``budget`` rounds, the device loop's condition evaluated on
+        entry and after each round; returns (state, rounds run)."""
+        ctrl = torch.tensor([int(budget), 0, 0, 0], dtype=torch.int32,
+                            device=dev)
+        done0 = torch.empty_like(st.done)
+        go = loop_step(st.live, st.done, done0, ctrl, flags | FIRST)
+        while bool(go):
+            st = round_fn(st)
+            go = loop_step(st.live, st.done, done0, ctrl, flags)
+        return st, ctrl[1].clone()
+
+    def multi_fn(st: SlotState, max_rounds):
+        """Up to ``max_rounds`` rounds (capped by ``spec.device_rounds``),
+        leaving as soon as any slot's accept fires: ``done`` rises against
+        the flags at entry (drained slots keep their stale flag until
+        re-admission, so the difference is exactly "newly finished") or no
+        lane is live. Returns (state, rounds run)."""
+        if spec.device_rounds is not None:
+            max_rounds = min(int(max_rounds), spec.device_rounds)
+        return _loop(st, max_rounds, EXIT_ON_ACCEPT)
+
+    def roll_fn(st: SlotState, k) -> SlotState:
+        """Exactly ``k`` rounds with no accept exit (the overlap engine's
+        fast path, when no lane can finish within them). Rounds on an
+        all-dead grid are the identity, so stopping when no lane is live is
+        bitwise the k-fold ``round``."""
+        return _loop(st, k, 0)[0]
+
+    return {"round": round_fn, "admit": admit_fn, "init_state": init_state,
+            "multi": multi_fn, "roll": roll_fn}
 
 
-def _build_grid(drift, tgrid, n: int, spec: GridSpec,
-                use_kernel: bool) -> GridPrograms:
+def _same(st):
+    return st
+
+
+def _build_grid(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool,
+                eager: bool) -> GridPrograms:
     fns = _grid_fns(drift, tgrid, n, spec, use_kernel)
-    return GridPrograms(spec=spec, round=fns["round"], admit=fns["admit"],
-                        init_state=fns["init_state"])
+    if not eager:
+        from repro_torch.serve.graphs import GraphGrid
+        return GraphGrid(fns, spec, tgrid.device).programs()
+    return GridPrograms(spec=spec, round=fns["round"], roll=fns["roll"],
+                        multi=fns["multi"], admit=fns["admit"],
+                        init_state=fns["init_state"], keep=_same,
+                        restore=_same, close=lambda: None)
 
 
 def _build_stream(drift, tgrid, n: int, spec: StreamSpec,
@@ -248,12 +327,17 @@ class RoundExecutor:
 
     One executor wraps one ``(drift, tgrid)`` pair and runs on
     ``tgrid.device``. ``retraces`` counts grid-spec cache misses and
-    ``stream_traces`` stream-spec ones.
+    ``stream_traces`` stream-spec ones. The grid programs are CUDA graphs
+    on CUDA and eager closures on the CPU; ``eager=True`` takes the eager
+    closures on CUDA too (the plain version the graphs are held to). A
+    graph grid owns one set of state buffers, so it serves one engine: give
+    each engine its own executor. An evicted graph grid frees its memory
+    and refuses further calls.
     """
 
     def __init__(self, drift: Callable, tgrid, n_steps: Optional[int] = None,
                  use_kernel: bool = False, max_entries: int = 8,
-                 tracer=None, metrics=None):
+                 tracer=None, metrics=None, eager: bool = False):
         self.drift = drift
         self.tgrid = tgrid
         self.n = int(n_steps) if n_steps is not None \
@@ -262,6 +346,7 @@ class RoundExecutor:
             raise ValueError(
                 f"n_steps {self.n} != len(tgrid)-1 {int(tgrid.shape[0]) - 1}")
         self.use_kernel = bool(use_kernel)
+        self.eager = bool(eager) or tgrid.device.type != "cuda"
         self.max_entries = max(1, int(max_entries))
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -286,7 +371,9 @@ class RoundExecutor:
         val = build()
         cache[key] = val
         while len(cache) > max_entries:
-            cache.popitem(last=False)
+            evicted = cache.popitem(last=False)[1]
+            if isinstance(evicted, GridPrograms):
+                evicted.close()
         return val, True
 
     def grid(self, spec: GridSpec) -> GridPrograms:
@@ -294,7 +381,7 @@ class RoundExecutor:
         progs, missed = self._lru_get(
             self._grids, spec,
             lambda: _build_grid(self.drift, self.tgrid, self.n, spec,
-                                self.use_kernel),
+                                self.use_kernel, self.eager),
             self.max_entries)
         if missed:
             self._c_retraces.inc()
@@ -325,6 +412,12 @@ class RoundExecutor:
     @property
     def stream_traces(self) -> int:
         return int(self._c_stream_traces.value)
+
+    @property
+    def programs(self) -> str:
+        """``"graph"`` (each grid program one CUDA graph launch) or
+        ``"eager"``."""
+        return "eager" if self.eager else "graph"
 
     @property
     def kernel_path(self) -> str:

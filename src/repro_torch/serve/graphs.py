@@ -1,0 +1,175 @@
+"""CUDA graphs of a slot grid's programs — the counterpart of ``jax.jit``
+over a grid program (``repro.serve.executor._build_grid``).
+
+On CUDA every state-advancing program of one :class:`GridSpec` is one graph
+launch over one set of static state buffers:
+
+- ``round``: the eager round (``executor._grid_fns``) captured once; the
+  graph reads the buffers and copies the next state back into them.
+- ``multi``: one graph built around the captured round by
+  ``csrc/device_loop.cu``: an entry kernel, then a conditional WHILE node
+  whose body is the round followed by the device loop's condition kernel.
+  The budget R is one device word written before each launch, so one
+  graph serves every R, and the device decides when the loop exits: a call
+  costs one host readback however many rounds it ran.
+- ``roll``: k launches of the round graph. It reads nothing back, and
+  rounds on an all-dead grid are the identity, so this is bitwise the
+  eager ``roll`` (which stops when no lane is live) with no conditional
+  node.
+- ``admit`` runs eagerly (a few launches) and writes the admitted lanes
+  into the buffers, bitwise what the functional admission returns.
+- ``keep`` / ``restore``: the rollback anchor. A graph overwrites the
+  buffers in place, so the overlap engine copies the state into a second
+  set on the device before a speculative step and copies it back on a
+  rollback (about 0.55 MB at the launcher defaults: microseconds).
+
+The round is warmed up on a side stream before capture (kernels set their
+shared-memory attributes on their first launch), and captured on the
+current device; every kernel wrapper reads the current stream at each
+launch, which puts its launches in the capture. A capture or instantiation
+error raises: there is no eager fallback. Loop programs need a CUDA 12.4
+runtime and driver.
+
+A replay launches the captured kernels without calling their wrappers; the
+kernels count their own launches on the device (``kernels.launch_counts``),
+so the counts cover replays with nothing added on the host.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.device_loop import kernel as loop_kernel
+from repro_torch.serve.executor import (GridPrograms, GridSpec, SlotState,
+                                        state_tensors)
+
+WARMUP_ROUNDS = 2
+
+
+def copy_state(dst: SlotState, src: SlotState) -> SlotState:
+    """Copy every tensor of ``src`` into ``dst`` (device copies on the
+    current stream); returns ``dst``."""
+    for d, s in zip(state_tensors(dst), state_tensors(src)):
+        if d is not s:
+            d.copy_(s)
+    return dst
+
+
+class GraphGrid:
+    """The graph program set of one grid: static state buffers, the
+    captured round and the ``multi`` loop program around it."""
+
+    def __init__(self, fns: Dict[str, object], spec: GridSpec, device):
+        self.spec = spec
+        self.device = torch.device(device)
+        self._fns = fns
+        self._claimed = False
+        self._closed = False
+        self._loop = None  # the multi program's handle
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch.cuda.device(self.device):
+            self.state = fns["init_state"]()
+            self.anchor = fns["init_state"]()
+            s = spec.num_slots
+            # ctrl: budget, rounds run by this launch, loop rounds run in
+            # total, last condition (csrc/device_loop.cu)
+            self.ctrl = torch.zeros(4, dtype=torch.int32, device=self.device)
+            self.done0 = torch.zeros(s, dtype=torch.bool, device=self.device)
+            self._warm_up()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(self.graph):
+                copy_state(self.state, fns["round"](self.state))
+            self.graph.instantiate()
+            self._loop = loop_kernel.graph_create(
+                self.graph.raw_cuda_graph(), self.state.live,
+                self.state.done, self.done0, self.ctrl)
+            torch.cuda.synchronize(self.device)
+        self.build_s = time.perf_counter() - t0
+
+    def _warm_up(self) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_ROUNDS):
+                self._fns["round"](self.state)  # functional: state unchanged
+        torch.cuda.current_stream(self.device).wait_stream(side)
+
+    # -- the programs ---------------------------------------------------------
+
+    def _check(self, st: SlotState) -> None:
+        if self._closed:
+            raise RuntimeError(f"grid {self.spec} was evicted from its "
+                               f"executor's cache; its graphs are freed")
+        if st is not self.state:
+            raise ValueError("a graph grid's programs advance its own state "
+                             "buffers: pass the state init_state returned")
+
+    def round(self, st: SlotState) -> SlotState:
+        self._check(st)
+        self.graph.replay()
+        return self.state
+
+    def multi(self, st: SlotState, max_rounds):
+        self._check(st)
+        if self.spec.device_rounds is not None:
+            max_rounds = min(int(max_rounds), self.spec.device_rounds)
+        self.ctrl[0].fill_(int(max_rounds))  # a fill kernel: no round trip
+        loop_kernel.graph_launch(self._loop, self.device.index or 0)
+        return self.state, self.ctrl[1]
+
+    def roll(self, st: SlotState, k) -> SlotState:
+        self._check(st)
+        for _ in range(int(k)):
+            self.graph.replay()
+        return self.state
+
+    def admit(self, st: SlotState, mask, x0, i_arr, rtol) -> SlotState:
+        self._check(st)
+        return copy_state(self.state,
+                          self._fns["admit"](st, mask, x0, i_arr, rtol))
+
+    def init_state(self) -> SlotState:
+        if self._claimed:
+            raise RuntimeError(
+                "this grid's CUDA graphs already serve an engine (they own "
+                "one set of state buffers): give each engine its own "
+                "RoundExecutor")
+        self._claimed = True
+        return self.state
+
+    def keep(self, st: SlotState) -> SlotState:
+        self._check(st)
+        return copy_state(self.anchor, st)
+
+    def restore(self, kept: SlotState) -> SlotState:
+        if kept is not self.anchor:
+            raise ValueError("restore takes the state keep returned")
+        return copy_state(self.state, kept)
+
+    def close(self) -> None:
+        """Free the loop program and the captured round's memory pool."""
+        if self._closed:
+            return
+        self._closed = True
+        self._destroy_loop()
+        self.graph.reset()
+
+    def _destroy_loop(self) -> None:
+        loop, self._loop = self._loop, None
+        if loop is not None:
+            loop_kernel.graph_destroy(loop)
+
+    def __del__(self):
+        try:
+            self._destroy_loop()
+        except Exception:  # noqa: BLE001 - a finalizer must not raise
+            pass
+
+    def programs(self) -> GridPrograms:
+        return GridPrograms(spec=self.spec, round=self.round,
+                            roll=self.roll, multi=self.multi,
+                            admit=self.admit, init_state=self.init_state,
+                            keep=self.keep, restore=self.restore,
+                            close=self.close, graphs=self)

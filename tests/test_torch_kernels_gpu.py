@@ -9,7 +9,9 @@ order); rmsnorm 1e-5 f32 / 5e-2 bf16; flash 2e-5 f32 / 2e-2 bf16;
 ``ssd_chunk`` max(1e-4, 1e-5 * max|ref|): the two versions sum up to Lc*N
 f32 products in different orders, and 1e-5 of the largest output is ~84 of
 its ulps (the sweep of ``tests/test_kernels.py`` holds at 1e-4 itself, in
-``chip_smoke.py``).
+``chip_smoke.py``); the device loop's condition kernel exactly. The grid's
+CUDA graphs (``serve/graphs.py``) are held to the eager programs bitwise at
+a micro DiT: the same kernels run on the same data.
 """
 import pytest
 import torch
@@ -261,6 +263,230 @@ def test_ssd_chunk_kernel(cuda, g, h, lc, n, hd):
         torch.testing.assert_close(out, ref, atol=tol, rtol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 4, 64])
+def test_device_loop_kernel_matches_ref(cuda, s):
+    """The condition kernel against ``ref.loop_step_ref`` on random flags:
+    entry, then steps with done rising and live falling, multi and roll."""
+    from repro_torch.kernels.device_loop.kernel import loop_step
+    from repro_torch.kernels.device_loop.ref import (EXIT_ON_ACCEPT, FIRST,
+                                                     loop_step_ref)
+    for flags in (EXIT_ON_ACCEPT, 0):
+        done = torch.rand(s, generator=cuda, device="cuda") < 0.3
+        live = torch.rand(s, generator=cuda, device="cuda") < 0.5
+        d0k, d0r = (torch.zeros(s, dtype=torch.bool, device="cuda")
+                    for _ in range(2))
+        ck, cr = (torch.tensor([5, 7, 9, 0], dtype=torch.int32,
+                               device="cuda") for _ in range(2))
+        for i in range(8):
+            f = flags | (FIRST if i == 0 else 0)
+            gk = loop_step(live, done, d0k, ck, f)
+            gr = loop_step_ref(live, done, d0r, cr, f)
+            assert torch.equal(ck, cr) and torch.equal(d0k, d0r), (s, i, f)
+            assert int(gk) == int(gr)
+            live = live & (torch.rand(s, generator=cuda, device="cuda")
+                           < 0.8)
+            done = done | (torch.rand(s, generator=cuda, device="cuda")
+                           < 0.1)
+
+
+def _micro_grid(eager, num_slots=3, rtol=0.3, device_rounds=None):
+    """A micro ``chords-dit-xl`` (the port's kernels on) on a grid with
+    every slot admitted, noise from a seeded generator: the same data
+    on the graphs and on the eager programs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.init_sequence import make_sequence
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import init_wrapper, make_drift
+    from repro_torch.serve.executor import GridSpec, RoundExecutor
+    n, k, latent = 12, 4, (1, 16, 8)
+    cfg = get_config("chords-dit-xl", reduced=True).replace(use_kernels=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_wrapper(cfg, 8, generator=gen, device="cuda")
+    with torch.no_grad():
+        params["out_proj"].normal_(0.0, 0.05, generator=gen)
+    ex = RoundExecutor(make_drift(params, cfg), uniform_tgrid(n,
+                                                              device="cuda"),
+                       n, use_kernel=True, eager=eager)
+    progs = ex.grid(GridSpec(num_slots, k, latent,
+                             device_rounds=device_rounds))
+    x0 = torch.randn((num_slots,) + latent, generator=gen, device="cuda")
+    i_arr = torch.tensor([make_sequence(k, n)] * num_slots,
+                         dtype=torch.int32, device="cuda")
+    rtol_t = torch.linspace(0.0, rtol, num_slots, device="cuda")
+    with torch.no_grad():
+        st = progs.admit(progs.init_state(),
+                         torch.ones(num_slots, dtype=torch.bool,
+                                    device="cuda"), x0, i_arr, rtol_t)
+    return ex, progs, st
+
+
+def _snapshot(st):
+    from repro_torch.serve.executor import state_tensors
+    return [t.clone() for t in state_tensors(st)]
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_graph_programs_bitwise_eager(cuda):
+    """round, roll(5) and multi(64) as CUDA graph launches against the
+    eager programs on the same data: every state tensor bitwise, the same
+    rounds run; the graph's state is advanced in place."""
+    runs = {}
+    with torch.no_grad():
+        for graphs in (False, True):
+            ex, progs, st = _micro_grid(not graphs)
+            assert ex.programs == ("graph" if graphs else "eager")
+            seq = [_snapshot(st)]
+            st = progs.round(st)
+            seq.append(_snapshot(st))
+            st = progs.roll(st, 5)
+            seq.append(_snapshot(st))
+            st, ran = progs.multi(st, 64)
+            seq.append(_snapshot(st) + [ran.clone()])
+            torch.cuda.synchronize()
+            runs[graphs] = seq
+    for i, (a, b) in enumerate(zip(runs[False], runs[True])):
+        assert _same(a, b), i
+    assert int(runs[True][-1][-1]) >= 1
+
+
+@pytest.mark.gpu
+def test_graph_multi_exits_at_first_new_accept(cuda):
+    """The graph loop stops at the round the first lane accepts (walked
+    round by round with the eager programs). The kernels' own device
+    counts show the replayed rounds ran the eager rounds' kernels, plus the
+    condition kernel once at entry and once a round, and the loop's device
+    clock advanced; the static cap holds."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.device_loop.kernel import clock
+    with torch.no_grad():
+        _, eager, st = _micro_grid(True)
+        reset_launch_counts()
+        first = None
+        for r in range(1, 13):
+            st = eager.round(st)
+            if bool(st.done.any()):
+                first = r
+                break
+        walked = launch_counts()
+        _, progs, st = _micro_grid(False)
+        reset_launch_counts()
+        ns0 = clock()[1]
+        st, ran = progs.multi(st, 64)
+        assert int(ran) == first
+        counts = launch_counts()
+        assert clock()[1] > ns0
+        assert counts["fused_step_rectify_accept"] == first
+        assert counts.pop("device_loop") == 1 + first
+        assert walked.pop("device_loop") == 0
+        assert counts == walked and counts["rmsnorm"] > 0
+        _, capped, st = _micro_grid(False, rtol=0.0, device_rounds=2)
+        _, ran = capped.multi(st, 64)
+        assert int(ran) == 2
+
+
+@pytest.mark.gpu
+def test_graph_roll_replays_the_round(cuda):
+    """roll(k) on the graphs is k launches of the round graph: the kernels
+    count k rounds of the eager round's launches, and no condition
+    kernel."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    with torch.no_grad():
+        _, eager, st = _micro_grid(True, rtol=0.0)
+        reset_launch_counts()
+        eager.round(st)
+        one = launch_counts()
+        _, progs, st = _micro_grid(False, rtol=0.0)
+        reset_launch_counts()
+        progs.roll(st, 3)
+        counts = launch_counts()
+    assert counts == {name: 3 * c for name, c in one.items()}
+    assert counts["fused_step_rectify_accept"] == 3
+    assert counts["device_loop"] == 0
+
+
+@pytest.mark.gpu
+def test_graph_grid_evicted_frees_and_refuses(cuda):
+    """A grid evicted from the executor's cache frees its graphs: its
+    programs refuse further calls; a grid's state buffers serve one
+    engine."""
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.serve.executor import GridSpec, RoundExecutor
+    ex = RoundExecutor(lambda x, t: -x, uniform_tgrid(8, device="cuda"), 8,
+                       max_entries=1)
+    first = ex.grid(GridSpec(2, 2, (4,)))
+    st = first.init_state()
+    with pytest.raises(RuntimeError, match="own"):
+        first.init_state()
+    first.round(st)
+    ex.grid(GridSpec(3, 2, (4,)))
+    assert ex.retraces == 2
+    with pytest.raises(RuntimeError, match="evicted"):
+        first.round(st)
+
+
+@pytest.mark.gpu
+def test_graph_capture_error_raises(cuda):
+    """A round that synchronizes cannot be captured: building the grid
+    raises; nothing falls back to eager rounds."""
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.serve.executor import GridSpec, RoundExecutor
+
+    def syncing_drift(x, t):
+        return -x * float(t.sum())  # a device->host read inside the round
+
+    ex = RoundExecutor(syncing_drift, uniform_tgrid(8, device="cuda"), 8)
+    with pytest.raises(RuntimeError):
+        ex.grid(GridSpec(2, 2, (4,)))
+    assert ex.programs == "graph"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [False, True])
+def test_graph_engine_bitwise_eager(cuda, overlap):
+    """The engine at R=8 on the graph programs against R=1 on the eager
+    ones: the same samples bitwise, rounds, core and speculation counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import init_wrapper, make_drift
+    from repro_torch.serve import ContinuousEngine, Request
+    from repro_torch.serve.executor import RoundExecutor
+    n = 12
+    cfg = get_config("chords-dit-xl", reduced=True).replace(use_kernels=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_wrapper(cfg, 8, generator=gen, device="cuda")
+    with torch.no_grad():
+        params["out_proj"].normal_(0.0, 0.05, generator=gen)
+    drift, tgrid = make_drift(params, cfg), uniform_tgrid(n, device="cuda")
+    out, stats = {}, {}
+    for graphs, r_dev in ((False, 1), (True, 8)):
+        ex = RoundExecutor(drift, tgrid, n, use_kernel=True,
+                           eager=not graphs)
+        eng = ContinuousEngine(drift, (1, 16, 8), n, 4, tgrid, num_slots=2,
+                               rtol=0.2, overlap=overlap, executor=ex,
+                               guard_syncs=overlap, device="cuda")
+        for i in range(5):
+            eng.submit(Request(rid=i, seed=40 + i))
+        with torch.no_grad():
+            out[graphs] = dict(eng.run_until_drained(
+                max_rounds_on_device=r_dev))
+        stats[graphs] = eng.stats()
+    for rid, a in out[False].items():
+        b = out[True][rid]
+        assert torch.equal(a.sample, b.sample), rid
+        assert (a.rounds_used, a.accepted_core, a.latency_rounds) == \
+            (b.rounds_used, b.accepted_core, b.latency_rounds)
+    for key in ("rounds_total", "served", "speculations",
+                "speculation_rollbacks"):
+        assert stats[False][key] == stats[True][key], key
+    assert stats[True]["programs"] == "graph"
+    assert stats[True]["host_syncs"] < stats[False]["host_syncs"] or overlap
+
+
 def test_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never fall back: a CPU tensor is an error (the
     dispatchers in ops.py pick the plain versions for CPU tensors)."""
@@ -275,3 +501,7 @@ def test_wrappers_refuse_cpu_tensors():
     cb = torch.zeros(2, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_chunk(cb, cb, torch.zeros(2, 1, 8, 8), torch.zeros(2, 1, 8))
+    from repro_torch.kernels.device_loop.kernel import loop_step
+    flags = torch.zeros(3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        loop_step(flags, flags, flags, torch.zeros(4, dtype=torch.int32), 2)

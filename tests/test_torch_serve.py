@@ -105,8 +105,11 @@ def test_continuous_engine_matches_jax(models, policy):
                 "preemptions", "deadline_misses", "deadline_total",
                 "wasted_slot_rounds", "dispatches"):
         assert st_t[key] == st_j[key], key
-    assert set(st_t) == set(st_j)
+    # the port's one extra key names its grid programs (CUDA graphs or,
+    # here on the CPU, eager closures)
+    assert set(st_t) == set(st_j) | {"programs"}
     assert st_t["kernel_path"] == "fused-accept-ref"
+    assert st_t["programs"] == "eager"
 
 
 def test_continuous_use_kernel_flip_is_bitwise(models):
@@ -162,15 +165,19 @@ def test_chords_engine_use_kernel_flip_is_bitwise(models):
                                 {"lane_profile": True}])
 def test_unported_engine_features_raise(kw):
     """Elastic sizes (item 6) and lane profiles (item 7) refuse at
-    construction; the overlap engine is ported, but its multi-round device
-    loop (``max_rounds_on_device > 1``, item 8) still refuses."""
+    construction. The overlap engine and its multi-round device loop
+    (``max_rounds_on_device > 1``, item 8) are ported: there
+    ``step(max_rounds_on_device=2)`` serves (it used to refuse)."""
     if kw.get("overlap"):
         eng = ContinuousEngine(lambda x, t: -x, (2,), 4, 2, uniform_tgrid(4),
                                num_slots=2, device="cpu", **kw)
         eng.submit(Request(rid=0, seed=1))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 8"):
-            eng.step(max_rounds_on_device=2)
+        done = []
+        while len(eng.queue) or eng.has_inflight:
+            done += eng.step(max_rounds_on_device=2)
+        assert [rid for rid, _ in done] == [0]
+        assert eng.round_count == 4
+        assert eng.stats()["dispatches"] < eng.round_count  # a 2-round roll
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         ContinuousEngine(lambda x, t: -x, (2,), 4, 2, uniform_tgrid(4),
