@@ -76,7 +76,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               profiled launches, the port's kernels among them); a steady
               window of eager R=1, graph R=1 and graph R=8 in each loop
               (s and device ms a round, idle share); capture time and memory;
-12. hybrid-device-loop — phase 11 on ``zamba2-2.7b``.
+12. elastic-serve — elastic capacity on ``chords-dit-xl`` (min 1, max 4
+              slots, hysteresis 4, rtol 0) over ``bursty_trace(50, burst=4,
+              quiet=2)``: synchronous at R=1 (every lane migration held to
+              a bitwise row copy) and R=8, the overlap loop at R=1 (its
+              trace written and passed by ``repro_torch.obs.check``);
+              pinned min = max = 4 bitwise fixed S=4; each request's rounds
+              and core equal fixed S=4's, samples bitwise when the drift is
+              row independent across the buckets' row counts (probed op by
+              op), else within the bf16 backbone tolerance with the gap
+              printed; fewer wasted slot-rounds than fixed S=4; each
+              bucket's capture time, the ladder's memory, and s a round
+              and device idle share at S = 1, 2, 4;
+13. lane-serve — heterogeneous lanes on ``chords-dit-xl``, 8 requests at
+              S=4, the default lane profile: exact mode bitwise the
+              homogeneous grid, adaptive and draft (rtol 0.05, tau 0.4)
+              bitwise between graphs and eager programs with their skips
+              and rounds, adaptive at rtol 0 bitwise exact, one accept and
+              the backbone's per-call kernels a lane round;
+14. hybrid-device-loop — phase 11 on ``zamba2-2.7b``.
 
 On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
 unless a phase asks for the eager programs. Launch counts are taken by the
@@ -100,8 +118,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
-          "overlap-serve", "device-loop", "ssd", "hybrid-drift",
-          "hybrid-serve", "hybrid-device-loop")
+          "overlap-serve", "device-loop", "elastic-serve", "lane-serve",
+          "ssd", "hybrid-drift", "hybrid-serve", "hybrid-device-loop")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -1646,6 +1664,487 @@ def phase_device_loop(cfg, params, phase="device-loop"):
     return total
 
 
+# -- elastic resize and heterogeneous lanes -----------------------------------
+
+BF16_RTOL, BF16_ATOL = 8e-2, 5e-2  # src/repro/kernels/README.md, bf16
+
+
+def matmul_row_independence(cfg, params, x, t, parts=(2, 4)) -> dict:
+    """Every matrix product of one drift call on ``x`` (a full grid),
+    recomputed on the first 1/p of its rows (the rows of a grid p times
+    smaller) and compared with those rows of the full product, in context
+    (``TorchFunctionMode`` sees each ``torch.einsum`` and ``@`` with its
+    operands). Returns {"op equation shapes, 1/p": max abs diff}."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.diffusion import denoise
+    probed = {torch.einsum: "einsum", torch.matmul: "matmul",
+              torch.Tensor.__matmul__: "matmul"}
+    found = {}
+
+    class Probe(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if func not in probed:
+                return out
+            idx = [i for i, a in enumerate(args)
+                   if isinstance(a, torch.Tensor)]
+            a = args[idx[0]]
+            eq = args[0] if isinstance(args[0], str) else ""
+            shapes = "x".join(str(list(args[i].shape)) for i in idx)
+            # the operands that carry the batch: by subscript (the output's
+            # leading one) for einsum; the left one, and a batched right
+            # one, for @
+            if eq:
+                ins, outs = eq.replace(" ", "").split("->")
+                rows = [i for i, sub in zip(idx, ins.split(","))
+                        if sub[:1] == outs[:1]]
+            else:
+                rows = [idx[0]] + [i for i in idx[1:] if args[i].ndim >= 3
+                                   and args[i].shape[0] == a.shape[0]]
+            a = args[rows[0]]
+            for p in parts:
+                if a.shape[0] % p or out.shape[0] != a.shape[0]:
+                    continue
+                sub = list(args)
+                for i in rows:
+                    sub[i] = args[i][:a.shape[0] // p]
+                alone = func(*sub, **kwargs)  # the mode is off in here
+                key = f"{probed[func]} {eq} {shapes} {a.dtype}, 1/{p}"
+                found[key] = max(found.get(key, 0.0),
+                                 max_err(alone, out[:alone.shape[0]]))
+            return out
+
+    with torch.no_grad(), Probe():
+        denoise(params, cfg.replace(use_kernels=True), x, t)
+    return found
+
+
+def row_independence(cfg, params, k: int = 8) -> dict:
+    """Whether the drift's ops give a row the same bits whatever the batch
+    around it: the first slot's rows ([k, 64, 16]) computed alone (one
+    slot, S=1) against inside a grid of four slots (S=4): the rmsnorm and
+    flash kernels at the served shapes, the whole drift, and every matrix
+    product of the drift in context (:func:`matmul_row_independence`:
+    those that differ are listed). The port's kernels are row independent
+    by construction; a GEMM library may pick another algorithm or split
+    for another row count. Returns each op's max abs difference."""
+    import torch
+    from repro_torch.diffusion import denoise
+    from repro_torch.kernels.flash_attention.ops import attend
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d, rows = cfg.d_model, k * 64
+    bf = torch.bfloat16
+    h = torch.randn(4 * rows, d, generator=gen, device="cuda").to(bf)
+    g = torch.ones(d, device="cuda", dtype=bf)
+    q = torch.randn(4 * k, 64, cfg.num_heads, d // cfg.num_heads,
+                    generator=gen, device="cuda").to(bf)
+    x = torch.randn(4 * k, 64, 16, generator=gen, device="cuda")
+    t = torch.rand(4 * k, generator=gen, device="cuda")
+    kcfg = cfg.replace(use_kernels=True)
+    out = {}
+    with torch.no_grad():
+        out["rmsnorm_kernel"] = max_err(
+            rmsnorm(h[:rows], g, 1e-6, use_kernel=True),
+            rmsnorm(h, g, 1e-6, use_kernel=True)[:rows])
+        out["flash_kernel"] = max_err(
+            attend(q[:k], q[:k], q[:k], causal=False, use_kernel=True),
+            attend(q, q, q, causal=False, use_kernel=True)[:k])
+        out["drift"] = max_err(denoise(params, kcfg, x[:k], t[:k]),
+                               denoise(params, kcfg, x, t)[:k])
+    products = matmul_row_independence(cfg, params, x, t)
+    out["products_probed"] = len(products)
+    out["products_not_row_independent"] = {
+        key: d for key, d in products.items() if d != 0.0}
+    return out
+
+
+def _check_migration(executor, checks):
+    """Wrap ``executor.migrate`` so every migration of the run is held to
+    a row copy: each filled destination lane's tensors equal its source
+    lane's bitwise (read back after the gather, outside the timed run's
+    no-sync spans: a resize runs at the top of a step)."""
+    import torch
+    from repro_torch.serve.executor import state_tensors
+    orig = executor.migrate
+
+    def migrate(src_spec, dst_spec):
+        run = orig(src_spec, dst_spec)
+
+        def go(dst, src, mask, idx):
+            before = [t.clone() for t in state_tensors(src)]
+            out = run(dst, src, mask, idx)
+            m, i = mask.cpu().tolist(), idx.cpu().tolist()
+            for o, s_ in zip(state_tensors(out), before):
+                for lane, on in enumerate(m):
+                    if on and not torch.equal(o[lane], s_[i[lane]]):
+                        raise AssertionError(
+                            f"migration {src_spec.num_slots} -> "
+                            f"{dst_spec.num_slots}: lane {lane} differs "
+                            f"from source lane {i[lane]}")
+            checks.append({"src": src_spec.num_slots,
+                           "dst": dst_spec.num_slots, "lanes": sum(m),
+                           "tensors": len(before), "bitwise": True})
+            return out
+
+        return go
+
+    executor.migrate = migrate
+
+
+def _bursty_run(drift, tgrid, n, k, r_dev=1, overlap=False, tracer=None,
+                migrate_checks=None, **kw):
+    """``bursty_trace(n, burst=4, quiet=2)`` (rtol 0: every lane runs n
+    rounds) through a fresh engine; (results, stats, wall s, launch counts,
+    engine). ``drive`` jumps the round clock over idle stretches,
+    so the rounds the device ran are the accept kernel's launches."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.sched.workload import bursty_trace, drive
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = _engine(drift, tgrid, n, k, kw.pop("num_slots", 4), rtol=0.0,
+                     overlap=overlap, tracer=tracer, guard_syncs=overlap,
+                     **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if migrate_checks is not None:
+        _check_migration(engine.executor, migrate_checks)
+    # the grid size of every round a step ran, and the requests live in it
+    sched, step = {}, engine.step
+
+    def live():
+        return {it.payload.rid for it in engine._slot_item if it is not None}
+
+    def logged(max_rounds_on_device=1):
+        r0, before = engine.round_count, live()
+        out = step(max_rounds_on_device=max_rounds_on_device)
+        rids = frozenset(before | live() | {rid for rid, _ in out})
+        for r in range(r0, engine.round_count):
+            sched[r] = (engine.s, rids)
+        return out
+
+    engine.step = logged
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        done = drive(engine, *bursty_trace(n, burst=4, quiet=2),
+                     max_rounds_on_device=r_dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return done, dict(_stats(engine), build_s=build_s, sched=sched), wall, \
+        launch_counts(), engine
+
+
+def _check_bursty_launches(what, per_call, st, counts):
+    """Every round the device ran launched one accept kernel and the
+    backbone's per-call counts; a step is one round, or one ``multi`` (the
+    loop's condition once at entry and once a round). The device ran as
+    many rounds as the accept kernel counted: one a ``round`` dispatch,
+    and the rest inside ``multi`` programs."""
+    kinds, acc = st["dispatch_kinds"], counts["fused_step_rectify_accept"]
+    loop = kinds["multi"] + acc - kinds["round"]
+    if kinds["roll"] or acc < 1 or (not kinds["multi"]
+                                    and acc != st["dispatches"]) \
+            or counts != _want(per_call, acc, loop=loop):
+        raise AssertionError(f"{what}: launches {counts}, {acc} rounds, "
+                             f"dispatches {kinds}")
+
+
+def _other_s(sched_a, sched_b) -> set:
+    """The requests that ran some round at another grid size in one run
+    than in the other (or in a round only one run dispatched)."""
+    rids = set()
+    for r in set(sched_a) | set(sched_b):
+        a, b = sched_a.get(r, (None, frozenset())), \
+            sched_b.get(r, (None, frozenset()))
+        if a[0] != b[0]:
+            rids |= a[1] | b[1]
+    return rids
+
+
+def _compare_samples(what, a_out, b_out, exempt=()) -> dict:
+    """Per request: rounds used and accepted core equal (rtol 0: fixed by
+    the schedule); samples bitwise, except the ``exempt`` requests (some
+    round at another grid size, on a card whose drift is not row
+    independent across grid sizes), which are held to the bf16 backbone
+    tolerance. Returns the largest gaps."""
+    import torch
+    if sorted(a_out) != sorted(b_out):
+        raise AssertionError(f"{what}: served {sorted(a_out)} vs "
+                             f"{sorted(b_out)}")
+    gap, rel, same = 0.0, 0.0, 0
+    for rid, a in a_out.items():
+        b = b_out[rid]
+        if (a.rounds_used, a.accepted_core) != (b.rounds_used,
+                                                b.accepted_core):
+            raise AssertionError(f"{what}: request {rid} rounds/core "
+                                 f"({a.rounds_used}, {a.accepted_core}) vs "
+                                 f"({b.rounds_used}, {b.accepted_core})")
+        if torch.equal(a.sample, b.sample):
+            same += 1
+            continue
+        if rid not in exempt:
+            raise AssertionError(f"{what}: request {rid} not bitwise (max "
+                                 f"err {max_err(a.sample, b.sample)})")
+        torch.testing.assert_close(a.sample, b.sample, rtol=BF16_RTOL,
+                                   atol=BF16_ATOL)
+        gap = max(gap, max_err(a.sample, b.sample))
+        rel = max(rel, rel_l2(a.sample, b.sample))
+    return {"bitwise_requests": same, "requests": len(a_out),
+            "other_s_requests": sorted(exempt), "max_abs_gap": gap,
+            "max_rel_l2_gap": rel}
+
+
+def phase_elastic_serve(cfg, params, phase="elastic-serve"):
+    """Elastic capacity on the graphs at the launcher's latent (1, 64, 16),
+    K=8, N=50: ``bursty_trace(50, burst=4, quiet=2)`` with min 1 / max 4
+    slots, hysteresis 4, rtol 0, synchronous at R=1 (every migration held
+    to a row copy) and R=8, then the overlap loop at R=1 (traced, its trace
+    checked by ``repro_torch.obs.check``); against it fixed S=4 and pinned
+    min = max = 4 (bitwise fixed S=4, equal stats). Each request's rounds
+    and core equal fixed S=4's; samples bitwise where the drift's ops are
+    row independent across the buckets' row counts (``row_independence``),
+    else within the bf16 backbone tolerance, the gap printed. Then each
+    bucket's capture time, the ladder's memory, and s a round and device
+    idle share at S = 1, 2, 4 (a profiled window of a full grid)."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.check import check, summarize
+    n, k = 50, 8
+    tgrid = uniform_tgrid(n, device="cuda")
+    drift = make_drift(params, cfg.replace(use_kernels=True))
+    per_call = per_call_launches(cfg)
+    total: dict = {}
+
+    rows = row_independence(cfg, params, k)
+    cross_bitwise = all(rows[op] == 0.0 for op in (
+        "rmsnorm_kernel", "flash_kernel", "drift")) \
+        and not rows["products_not_row_independent"]
+    emit(phase + "/rows", card=CARD[0], max_abs_diff_alone_vs_in_grid=rows,
+         row_independent=cross_bitwise)
+
+    runs, migrations = {}, []
+    elastic = dict(num_slots=1, min_slots=1, max_slots=4,
+                   resize_hysteresis=4)
+    for label, r_dev, overlap, kw in (
+            ("fixed-S4", 1, False, {"num_slots": 4}),
+            ("pinned-4-4", 1, False, {"num_slots": 4, "min_slots": 4,
+                                      "max_slots": 4}),
+            ("elastic-sync-R1", 1, False, elastic),
+            ("elastic-sync-R8", 8, False, elastic),
+            ("elastic-overlap-R1", 1, True, elastic)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        res0 = torch.cuda.memory_reserved()
+        tracer = Tracer() if overlap else None
+        done, st, wall, counts, engine = _bursty_run(
+            drift, tgrid, n, k, r_dev, overlap, tracer,
+            migrations if label == "elastic-sync-R1" else None, **dict(kw))
+        _check_served(list(done.items()), 10, n, (1, 64, 16))
+        _check_bursty_launches(f"{phase} {label}", per_call, st, counts)
+        total = {name: total.get(name, 0) + c for name, c in counts.items()}
+        rec = dict(r_dev=r_dev, overlap=overlap, wall_s=wall,
+                   device_rounds=counts["fused_step_rectify_accept"],
+                   s_per_device_round=wall
+                   / max(1, counts["fused_step_rectify_accept"]),
+                   engine_build_s=st["build_s"],
+                   **{key: st[key] for key in (
+                       "rounds_total", "host_syncs", "dispatches",
+                       "resizes", "grows", "shrinks", "resize_vetoes",
+                       "migrations", "buckets_visited", "retraces",
+                       "migration_traces", "wasted_slot_rounds",
+                       "latency_rounds_p95", "speculation_rollbacks",
+                       "programs")})
+        if engine.min_slots != engine.max_slots:
+            rec["grid_build_s"] = {b: p.graphs and p.graphs.build_s
+                                   for b, p in engine._progs.items()}
+            # allocated: live tensors (state buffers, the graphs' outputs);
+            # reserved: the allocator's blocks, the graphs' pools included
+            rec["ladder_memory_gb"] = (torch.cuda.memory_allocated()
+                                       - mem0) / 1e9
+            rec["ladder_reserved_gb"] = (torch.cuda.memory_reserved()
+                                         - res0) / 1e9
+        if tracer is not None:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "elastic_trace.json")
+                doc = engine.write_trace(path, meta={"phase": phase})
+                ok, lines = check(doc)
+            names = [e["name"] for e in doc["traceEvents"]]
+            trace = {name: names.count(name) for name in (
+                "resize/grow", "resize/shrink", "migrate/lanes",
+                "dispatch/migrate", "spec/rollback", "request/compute")}
+            rec["trace"] = dict(events=doc["otherData"]["events"],
+                                dropped=doc["otherData"]["dropped"],
+                                counts=trace, check=lines,
+                                summary=summarize(doc)[:6])
+            if not ok or not trace["migrate/lanes"] \
+                    or not (trace["resize/grow"] + trace["resize/shrink"]):
+                raise AssertionError(f"{phase}: trace check {ok} {lines}, "
+                                     f"events {trace}")
+        runs[label] = (done, st)
+        emit(phase + "/run", card=CARD[0], run=label, **rec)
+        del engine
+        torch.cuda.empty_cache()
+
+    fixed_out, fixed_st = runs["fixed-S4"]
+    pin_out, pin_st = runs["pinned-4-4"]
+    _compare_samples(f"{phase} pinned vs fixed", fixed_out, pin_out)
+    for key in ("rounds_total", "host_syncs", "dispatches",
+                "wasted_slot_rounds", "latency_rounds_p95", "resizes",
+                "migrations"):
+        if fixed_st[key] != pin_st[key]:
+            raise AssertionError(f"{phase} pinned vs fixed: {key} "
+                                 f"{pin_st[key]} vs {fixed_st[key]}")
+    gaps = {}
+    for label in ("elastic-sync-R1", "elastic-sync-R8",
+                  "elastic-overlap-R1"):
+        out, st = runs[label]
+        if not (st["migrations"] > 0 and st["resizes"] > 0
+                and st["retraces"] <= len(st["buckets_visited"])
+                and st["wasted_slot_rounds"]
+                < fixed_st["wasted_slot_rounds"]):
+            raise AssertionError(f"{phase} {label}: stats {st}")
+        exempt = set() if cross_bitwise else _other_s(fixed_st["sched"],
+                                                      st["sched"])
+        gaps[label] = _compare_samples(f"{phase} {label} vs fixed S=4",
+                                       fixed_out, out, exempt)
+    (sync_out, sync_st), (ovl_out, ovl_st) = (runs["elastic-sync-R1"],
+                                              runs["elastic-overlap-R1"])
+    gaps["overlap-vs-sync"] = _compare_samples(
+        f"{phase} overlap vs sync", sync_out, ovl_out,
+        set() if cross_bitwise else _other_s(sync_st["sched"],
+                                             ovl_st["sched"]))
+    if not migrations:
+        raise AssertionError(f"{phase}: no migration was checked")
+
+    buckets = {}
+    for s in (1, 2, 4):
+        buckets[s] = profile_rounds(drift, tgrid, n, k, s,
+                                    f"{phase}/bucket-{s}", per_call,
+                                    timed=10)
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, card=CARD[0],
+         cross_bucket_bitwise=cross_bitwise, migrations_checked=migrations,
+         sample_gaps=gaps,
+         buckets={s: {f: v[f] for f in (
+             "wall_ms_per_round", "device_ms_per_round", "device_idle_share",
+             "span_ms_per_round", "kernels_per_round")}
+             for s, v in buckets.items()})
+    return total
+
+
+def _lane_run(drift, tgrid, n, k, mode, profile, rtol, eager=False,
+              tau=0.4):
+    """8 requests in ``mode`` through one engine at S=4 (``profile``: a
+    lane profile or None for the homogeneous grid), on the graphs or the
+    eager programs; (results, stats, wall s, launch counts)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Request
+    engine = _engine(drift, tgrid, n, k, 4, eager, rtol=rtol,
+                     lane_profile=profile, lane_skip_tau=tau)
+    for i in range(8):
+        engine.submit(Request(rid=i, seed=100 + i, mode=mode))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        done = dict(engine.run_until_drained())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = _stats(engine)
+    del engine
+    torch.cuda.empty_cache()
+    return done, st, wall, launch_counts()
+
+
+def phase_lane_serve(cfg, params, phase="lane-serve"):
+    """Heterogeneous lanes on the graphs at the launcher's latent, K=8,
+    N=50, S=4, 8 requests, ``lane_profile="default"`` (cores 6-7 draft at
+    factor 2, cores 4-7 skip-eligible): exact mode at rtol 0.05 bitwise
+    the homogeneous graph run with equal rounds; adaptive and draft at rtol
+    0.05, tau 0.4 (skips, rounds a request, s a round), each on the graphs
+    bitwise its eager run; adaptive at rtol 0 bitwise exact at rtol 0.
+    Every lane round launched the homogeneous round's kernels: one accept,
+    and the backbone's per-call rmsnorm and flash counts."""
+    import torch
+    from repro_torch.core import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    n, k = 50, 8
+    tgrid = uniform_tgrid(n, device="cuda")
+    drift = make_drift(params, cfg.replace(use_kernels=True))
+    per_call = per_call_launches(cfg)
+    total: dict = {}
+    recs, runs = {}, {}
+    for label, mode, profile, rtol, eager in (
+            ("homogeneous", "exact", None, 0.05, False),
+            ("exact", "exact", "default", 0.05, False),
+            ("adaptive", "adaptive", "default", 0.05, False),
+            ("adaptive-eager", "adaptive", "default", 0.05, True),
+            ("draft", "draft", "default", 0.05, False),
+            ("draft-eager", "draft", "default", 0.05, True),
+            ("exact-rtol0", "exact", "default", 0.0, False),
+            ("adaptive-rtol0", "adaptive", "default", 0.0, False)):
+        done, st, wall, counts = _lane_run(drift, tgrid, n, k, mode,
+                                           profile, rtol, eager)
+        _check_served(list(done.items()), 8, n, (1, 64, 16))
+        rounds = st["rounds_total"]
+        want = _want(per_call, rounds)
+        if counts != want or st["dispatches"] != rounds:
+            raise AssertionError(f"{phase} {label}: launches {counts} != "
+                                 f"{want} ({rounds} rounds, dispatches "
+                                 f"{st['dispatches']})")
+        total = {name: total.get(name, 0) + c for name, c in counts.items()}
+        runs[label] = (done, st)
+        recs[label] = dict(
+            mode=mode, rtol=rtol, programs=st["programs"], rounds=rounds,
+            wall_s=wall, s_per_round=wall / rounds,
+            lane_skips=st["lane_skips"],
+            lane_promotes=st["lane_promotes"],
+            lane_served_nonexact=st["lane_served_nonexact"],
+            rounds_used=[done[r].rounds_used for r in sorted(done)],
+            mean_rounds_used=sum(o.rounds_used for o in done.values()) / 8,
+            accepted_cores=[done[r].accepted_core for r in sorted(done)],
+            launches_per_round={name: c / rounds
+                                for name, c in counts.items()})
+        emit(phase + "/run", card=CARD[0], run=label, **recs[label])
+
+    def same(a, b):
+        da, db = runs[a][0], runs[b][0]
+        for rid, x in da.items():
+            y = db[rid]
+            if not (torch.equal(x.sample, y.sample)
+                    and (x.rounds_used, x.accepted_core)
+                    == (y.rounds_used, y.accepted_core)):
+                raise AssertionError(
+                    f"{phase}: request {rid} {a} vs {b}: rounds "
+                    f"{x.rounds_used}/{y.rounds_used}, max err "
+                    f"{max_err(x.sample, y.sample)}")
+
+    same("exact", "homogeneous")
+    same("adaptive", "adaptive-eager")
+    same("draft", "draft-eager")
+    same("adaptive-rtol0", "exact-rtol0")
+    if runs["exact"][1]["lane_skips"] or \
+            runs["exact"][1]["lane_served_nonexact"]:
+        raise AssertionError(f"{phase}: exact mode skipped a step")
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, card=CARD[0],
+         bitwise={"exact_vs_homogeneous": True, "graph_vs_eager": True,
+                  "adaptive_rtol0_vs_exact": True},
+         skips={m: recs[m]["lane_skips"] for m in ("adaptive", "draft")},
+         mean_rounds_used={m: recs[m]["mean_rounds_used"]
+                           for m in ("exact", "adaptive", "draft")},
+         s_per_round={m: recs[m]["s_per_round"] for m in recs})
+    return total
+
+
 def _accept_path_kernels(rows, m, p):
     """The round body's accept call (``ops.step_rectify_accept`` with a
     bool ``fire``, as ``core/chords.py`` makes it) at the round's shape
@@ -1732,6 +2231,8 @@ _CONTINUOUS = {"fused_step_rectify_accept", "rmsnorm", "flash_attention"}
 SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                  "overlap-serve": _CONTINUOUS,
                  "device-loop": _CONTINUOUS | {"device_loop"},
+                 "elastic-serve": _CONTINUOUS | {"device_loop"},
+                 "lane-serve": _CONTINUOUS,
                  "hybrid-serve": _CONTINUOUS | {"fused_step_rectify",
                                                 "ssd_chunk"},
                  "hybrid-device-loop": _CONTINUOUS | {"device_loop",
@@ -1774,7 +2275,10 @@ def main(argv=None) -> int:
             ("chords-dit-xl", "drift", (("serve", phase_serve),
                                         ("overlap-serve",
                                          phase_overlap_serve),
-                                        ("device-loop", phase_device_loop))),
+                                        ("device-loop", phase_device_loop),
+                                        ("elastic-serve",
+                                         phase_elastic_serve),
+                                        ("lane-serve", phase_lane_serve))),
             ("zamba2-2.7b", "hybrid-drift", (("hybrid-serve", phase_serve),
                                              ("hybrid-device-loop",
                                               phase_device_loop)))):

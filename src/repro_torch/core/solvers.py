@@ -1,5 +1,5 @@
 """Single-core ODE solver s_theta (paper Eq. 6) — port of
-``repro.core.solvers`` (Euler; Heun and the draft drift come later)."""
+``repro.core.solvers`` (Euler and the draft drift; Heun comes later)."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +33,25 @@ def sequential_sample(drift: DriftFn, x0, tgrid, method: str = "euler",
         if collect:
             traj.append(x[0])
     return (x[0], torch.stack(traj)) if collect else x[0]
+
+
+def draft_drift(drift: DriftFn, coarse_factor: int) -> DriftFn:
+    """Cheap draft-solver drift: evaluate at reduced latent resolution.
+
+    Wraps ``drift`` in the ``rectify.coarse_smooth`` down/up-sample pair:
+    the latent is smoothed before the network call and the velocity after.
+    Shape-preserving, 1 NFE, and exactly the per-core computation the
+    heterogeneous round applies under its draft mask
+    (``core.chords.make_slot_round_body`` with a lane profile); kept
+    standalone as the plain version that masked path is tested against.
+    """
+    from repro_torch.core.rectify import coarse_smooth
+
+    if coarse_factor <= 1:
+        return drift
+
+    def cheap(x, t):
+        return coarse_smooth(drift(coarse_smooth(x, coarse_factor), t),
+                             coarse_factor)
+
+    return cheap

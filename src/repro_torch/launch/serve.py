@@ -17,6 +17,17 @@ loop rolls up to R rounds no lane can finish in. On CUDA every round
 program is one CUDA graph launch (the loops need a CUDA 12.4 runtime and
 driver).
 
+``--min-slots/--max-slots`` enable demand-paged capacity: S moves along
+power-of-two buckets, growing at once on queued demand and shrinking
+after ``--resize-hysteresis`` rounds of low occupancy (a policy may veto a
+shrink that endangers a queued deadline); every bucket's grid is built at
+start-up. ``--lane-mode {exact,adaptive,draft}`` builds the engine with the
+default draft+skip lane profile and serves every request in that mode
+(``exact`` is bitwise the homogeneous grid; ``--lane-skip-tau`` is the
+skip threshold). ``--trace-out PATH`` writes a Chrome trace-event JSON file
+(request lifecycle, dispatch spans, metrics snapshot): open it in
+ui.perfetto.dev, verify it with ``python -m repro_torch.obs check PATH``.
+
   python -m repro_torch.launch.serve --steps 50 --cores 8 --slots 4 \
       --use-kernels
   python -m repro_torch.launch.serve --arch zamba2-2.7b --use-kernels
@@ -25,10 +36,8 @@ driver).
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --reduced --device cpu
-
-Flags of the reference not honored yet (``--min-slots``, ``--max-slots``,
-``--lane-mode``, ``--trace-out``) belong to ROADMAP.md queue 1 items 6, 7
-and 9.
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --min-slots 1 --max-slots 4 --lane-mode adaptive --trace-out t.json
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.ode import uniform_tgrid
 from repro_torch.device import resolve_device
 from repro_torch.diffusion import init_wrapper, make_drift
-from repro_torch.obs import format_stats
+from repro_torch.obs import Tracer, format_stats
 from repro_torch.serve import ChordsEngine, ContinuousEngine, Request
 
 
@@ -55,6 +64,17 @@ def main(argv=None):
     ap.add_argument("--latent-dim", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4,
                     help="slot count S (doubles as --static max_batch)")
+    ap.add_argument("--min-slots", type=int, default=None,
+                    help="elastic capacity floor: S shrinks to this bucket "
+                         "under sustained low occupancy (default: fixed S "
+                         "= --slots; min == max disables every resize path "
+                         "bit for bit)")
+    ap.add_argument("--max-slots", type=int, default=None,
+                    help="elastic capacity ceiling: S grows toward this "
+                         "bucket when queued demand exceeds free lanes")
+    ap.add_argument("--resize-hysteresis", type=int, default=8,
+                    help="lockstep rounds of sustained low occupancy "
+                         "before the grid pages slots out")
     ap.add_argument("--rtol", type=float, default=0.05)
     ap.add_argument("--static", action="store_true",
                     help="serve with the static-batch engine instead")
@@ -69,6 +89,20 @@ def main(argv=None):
     ap.add_argument("--device-rounds", type=int, default=1,
                     help="rounds one device program may run per host "
                          "readback (the multi-round device loop)")
+    ap.add_argument("--lane-mode", default=None,
+                    choices=["exact", "adaptive", "draft"],
+                    help="serve every request in this heterogeneous-lane "
+                         "mode (the engine gets the default draft+skip "
+                         "lane profile; 'exact' is bitwise the homogeneous "
+                         "grid). Continuous engine only")
+    ap.add_argument("--lane-skip-tau", type=float, default=0.4,
+                    help="stability threshold of lane step skipping "
+                         "(adaptive and draft modes)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON file (request "
+                         "lifecycle, dispatch spans, metrics snapshot); "
+                         "verify it with `python -m repro_torch.obs check "
+                         "PATH` (continuous engine only)")
     ap.add_argument("--use-kernels", action="store_true",
                     help="route RMSNorm, attention, the SSD chunk block "
                          "and the fused CHORDS round through the port's "
@@ -78,6 +112,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     args = ap.parse_args(argv)
+    if args.static and (args.lane_mode or args.trace_out):
+        ap.error("--lane-mode and --trace-out need the continuous engine "
+                 "(drop --static)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -117,11 +154,16 @@ def main(argv=None):
             drift, latent_shape=(1, args.seq, args.latent_dim),
             n_steps=args.steps, num_cores=args.cores, tgrid=tgrid,
             num_slots=args.slots, rtol=args.rtol, policy=args.policy,
-            overlap=args.overlap, use_kernel=args.use_kernels or None,
-            device=dev)
+            min_slots=args.min_slots, max_slots=args.max_slots,
+            resize_hysteresis=args.resize_hysteresis, overlap=args.overlap,
+            lane_profile=True if args.lane_mode else None,
+            lane_skip_tau=args.lane_skip_tau,
+            use_kernel=args.use_kernels or None,
+            tracer=Tracer() if args.trace_out else None, device=dev)
         for i in range(args.requests):
             engine.submit(Request(rid=i, seed=100 + i,
-                                  deadline_rounds=args.deadline_rounds))
+                                  deadline_rounds=args.deadline_rounds,
+                                  mode=args.lane_mode or "exact"))
         done = engine.run_until_drained(
             max_rounds_on_device=args.device_rounds)
     print(f"[serve] device_rounds={args.device_rounds}")
@@ -131,6 +173,12 @@ def main(argv=None):
               f"latency {out.latency_rounds} rounds)")
     for line in format_stats(engine.stats()):
         print(line)
+    if args.trace_out:
+        doc = engine.write_trace(args.trace_out, meta={"launcher": "serve"})
+        print(f"[serve] trace: {args.trace_out} "
+              f"({doc['otherData']['events']} events, "
+              f"{doc['otherData']['dropped']} dropped); check it with "
+              f"`python -m repro_torch.obs check {args.trace_out}`")
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ from typing import Dict, List, Sequence, Tuple
 GROUPS: Sequence[Tuple[str, Sequence[str]]] = (
     ("serve", ("served", "rounds_total", "throughput_req_per_round",
                "occupancy", "latency_rounds_p50", "latency_rounds_p95",
-               "mean_speedup", "kernel_path")),
+               "mean_speedup", "kernel_path", "programs")),
     ("sched", ("policy", "deadline_misses", "deadline_total",
                "deadline_miss_rate", "preemptions",
                "preempted_rounds_wasted", "host_syncs")),

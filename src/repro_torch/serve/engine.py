@@ -22,10 +22,14 @@ engine's device from ``torch.Generator(device).manual_seed(seed)`` — or an
 explicit ``x0``; the parity tests inject the JAX package's draws through
 ``x0`` (``jax.random`` streams cannot be reproduced in torch).
 
-Ported: the synchronous and the overlap engine, with the multi-round
-device loop, under FIFO / EDF / EDF-preempt. Not yet (each raises
-``NotImplementedError``): elastic ``min_slots``/``max_slots`` (ROADMAP.md
-queue 1 item 6), ``lane_profile`` (item 7), ``write_trace`` (item 9).
+Elastic capacity (``min_slots < max_slots``) moves S along a power-of-two
+bucket ladder, live lanes migrating between grids by a bit-exact masked
+gather; every bucket's grid is built once, at construction, and kept.
+Heterogeneous lanes (``lane_profile``) make each slot's K cores
+asymmetric (draft lanes, stability-gated step skipping), opted into per
+request through ``Request.mode``. ``write_trace`` exports the tracer's
+events and the metrics snapshot as one Chrome trace-event JSON file in
+the reference's schema (``python -m repro_torch.obs check``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.chords import default_lane_profile
 from repro_torch.core.init_sequence import make_sequence
 from repro_torch.device import resolve_device
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
@@ -45,14 +50,8 @@ from repro_torch.serve.executor import (GridSpec, RoundExecutor,
                                         StreamSpec)
 from repro_torch.serve.sched.cost import CostModel
 from repro_torch.serve.sched.policy import (Decision, EngineView, LaneView,
-                                            get_policy)
+                                            ResizeProposal, get_policy)
 from repro_torch.serve.sched.queue import AdmissionQueue, QueueItem
-
-
-def _not_ported(what: str, item: int, title: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item {item} "
-        f"({title})")
 
 
 @dataclasses.dataclass
@@ -76,9 +75,11 @@ class Request:
     priority: int = 0  # higher = more aggressive init sequence
     rtol: Optional[float] = None  # per-request accept tolerance
     deadline_rounds: Optional[int] = None  # SLA, in lockstep rounds
-    mode: str = "exact"  # lane mode; honored only with lane profiles,
-    # which are not ported yet — the homogeneous grid serves every mode
-    # exact, as the reference's does
+    mode: str = "exact"  # lane mode the request opts into: "exact"
+    # (bitwise the homogeneous engine), "adaptive" (stability-gated step
+    # skipping) or "draft" (skipping and coarse draft lanes). Honored only
+    # by an engine built with a lane_profile; the policy may still upgrade
+    # a non-exact request to exact when its deadline allows
 
 
 def request_noise(req: Request, latent_shape, device,
@@ -237,16 +238,52 @@ class _DecisionUndo:
     preempted_new: List[int]         # rids first marked preempted here
 
 
-class ContinuousEngine:
-    """Continuous-batching CHORDS runtime over a fixed ``[S, K, ...]`` slot
-    grid.
+def bucket_ladder(min_slots: int, max_slots: int) -> List[int]:
+    """Power-of-two capacity buckets from ``min_slots`` up to ``max_slots``
+    (the top bucket is clamped to ``max_slots`` even off-ladder)."""
+    if min_slots < 1 or min_slots > max_slots:
+        raise ValueError(f"need 1 <= min_slots <= max_slots, got "
+                         f"{min_slots}..{max_slots}")
+    b, out = min_slots, [min_slots]
+    while b < max_slots:
+        b = min(b * 2, max_slots)
+        out.append(b)
+    return out
 
-    Every ``step()``: (1) the scheduling ``policy`` ('fifo' default, 'edf',
-    'edf-preempt' or a Policy instance) decides admissions and evictions,
-    applied with the masked in-place admission program; (2) one lockstep
-    round for every live slot; (3) ``done``/``rounds_used``/``chosen`` come
-    back in ONE device->host transfer (``host_syncs`` counts these) and
-    finished slots drain, their results gathered in one more transfer.
+
+class ContinuousEngine:
+    """Continuous-batching CHORDS runtime over a demand-paged ``[S, K, ...]``
+    slot grid.
+
+    Every ``step()``: (0) with elastic capacity, maybe resize the grid;
+    (1) the scheduling ``policy`` ('fifo' default, 'edf', 'edf-preempt' or
+    a Policy instance) decides admissions and evictions, applied with the
+    masked in-place admission program; (2) one lockstep round for every
+    live slot; (3) ``done``/``rounds_used``/``chosen`` come back in ONE
+    device->host transfer (``host_syncs`` counts these) and finished slots
+    drain, their results gathered in one more transfer.
+
+    **Elastic capacity** (``min_slots < max_slots``): S moves along the
+    power-of-two bucket ladder. Growth is immediate when queued demand
+    exceeds free capacity (to the smallest bucket that fits live + queued;
+    never vetoed). Shrinking waits until occupancy has fit the next bucket
+    down for ``resize_hysteresis`` consecutive rounds, and the policy may
+    veto it (``Policy.consider_resize``). Live lanes migrate to the new
+    grid by a masked gather that copies each lane bit-exactly
+    (``executor.migrate``), so a resize never changes a result. Every
+    bucket's grid (on CUDA: its graphs and state buffers) is built once at
+    construction and pinned in the executor's cache; ``retraces`` is the
+    ladder's length. ``min_slots == max_slots`` (the default) is the
+    fixed-S engine bit for bit.
+
+    **Heterogeneous lanes** (``lane_profile``: a tuple of
+    ``core.chords.LaneSpec``, or ``True``/``"default"`` for
+    ``default_lane_profile(K)``): trailing cores take a draft role and/or
+    stability-gated step skipping; requests opt in through
+    ``Request.mode`` ("exact" | "adaptive" | "draft"), which the cost model
+    prices and the policy may upgrade to exact. An exact request zeroes
+    every gate, so its output is bitwise the homogeneous engine's;
+    ``lane_skip_tau`` is the skip threshold of the non-exact modes.
 
     ``step(max_rounds_on_device=R)`` amortizes the host over up to R rounds
     (:meth:`_step_sync`, :meth:`_step_overlap`) with the same samples and
@@ -259,8 +296,8 @@ class ContinuousEngine:
     ``guard_syncs=True`` (CUDA only, a debug check) runs the host's work
     between speculating and verifying, and the fast path's dispatch, under
     ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing call
-    there raises. ``stats()`` has the reference's keys; the features not
-    ported yet report their idle values.
+    there raises. ``stats()`` has the reference's keys, and
+    ``programs`` (graph or eager).
     """
 
     def __init__(self, drift: Callable, latent_shape: tuple, n_steps: int,
@@ -269,20 +306,16 @@ class ContinuousEngine:
                  aging_rounds: int = 32,
                  min_slots: Optional[int] = None,
                  max_slots: Optional[int] = None,
+                 resize_hysteresis: int = 8,
                  overlap: bool = False,
                  lane_profile=None,
+                 lane_skip_tau: float = 0.4,
                  executor: Optional[RoundExecutor] = None,
                  use_kernel: Optional[bool] = None,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  guard_syncs: bool = False,
                  device="cuda"):
-        if (min_slots not in (None, num_slots)
-                or max_slots not in (None, num_slots)):
-            raise _not_ported("elastic min_slots/max_slots", 6,
-                              "elastic resize and migrate")
-        if lane_profile:
-            raise _not_ported("lane_profile", 7, "heterogeneous lanes")
         self.device = resolve_device(device)
         self.latent_shape = tuple(latent_shape)
         self.n = n_steps
@@ -291,6 +324,13 @@ class ContinuousEngine:
         self.priority_speedup = priority_speedup
         self.overlap = bool(overlap)
         self.guard_syncs = bool(guard_syncs)
+        # a lane profile makes the K cores asymmetric; None keeps the
+        # homogeneous engine (every request runs exact, Request.mode is
+        # ignored, the programs are unchanged)
+        if lane_profile is True or lane_profile == "default":
+            lane_profile = default_lane_profile(num_cores)
+        self.lane_profile = tuple(lane_profile) if lane_profile else None
+        self.lane_skip_tau = float(lane_skip_tau)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.policy = get_policy(policy)
@@ -303,12 +343,89 @@ class ContinuousEngine:
         if self.executor.device != self.device:
             raise ValueError(f"executor runs on {self.executor.device}, "
                              f"engine on {self.device}")
-        self.s = int(num_slots)
-        self.spec = GridSpec(num_slots=self.s, num_cores=self.k,
-                             latent_shape=self.latent_shape)
-        self._prog = self.executor.grid(self.spec)
-        self.state = self._prog.init_state()
-        s = self.s
+        if min_slots is None and max_slots is None:
+            self.min_slots = self.max_slots = int(num_slots)
+        else:
+            self.min_slots = int(min_slots if min_slots is not None
+                                 else num_slots)
+            self.max_slots = int(max_slots if max_slots is not None
+                                 else max(num_slots, self.min_slots))
+        self._ladder = bucket_ladder(self.min_slots, self.max_slots)
+        # every bucket's grid is built now, once, and pinned: a graph grid
+        # captures in 0.2-0.8 s, so a resize must never rebuild one, and no
+        # eviction may take a grid with live lanes or a migration source
+        self.executor.reserve_grid_capacity(len(self._ladder))
+        self._progs = {b: self.executor.pin(self._spec(b))
+                       for b in self._ladder}
+        for p in self._progs.values():
+            p.init_state()  # a graph grid's buffers now serve this engine
+        # the overlap loop's readback lands in pinned host buffers, one set
+        # per bucket: flags [3 or 4, S] (done, rounds_used, chosen and, on
+        # a lane grid, the lanes' skips) and the due lanes' results, copied
+        # without blocking the host
+        self._rb: Dict[int, tuple] = {}
+        if self.overlap and self.device.type == "cuda":
+            rows = 3 + (self.lane_profile is not None)
+            for b in self._ladder:
+                self._rb[b] = (
+                    torch.empty((rows, b), dtype=torch.int32,
+                                pin_memory=True),
+                    torch.empty((b,) + self.latent_shape, pin_memory=True))
+        self.resize_hysteresis = max(1, int(resize_hysteresis))
+        self._install_grid(self._ladder[0])  # demand-paged: start smallest
+        self._buckets_visited = {self.s}
+        self.queue = AdmissionQueue(aging_rounds=aging_rounds)
+        self.round_count = 0  # plain attribute: trace drivers write it
+        self.preempted_rids: set = set()
+        self.migrated_rids: set = set()  # rids whose lane crossed a resize
+        self._low_streak = 0  # consecutive rounds of shrinkable occupancy
+        m = self.metrics
+        self._c_host_syncs = m.counter("serve.host_syncs")
+        self._c_preempt = m.counter("serve.preempt.count")
+        self._c_preempt_wasted = m.counter("serve.preempt.rounds_wasted")
+        self._c_deadline_total = m.counter("serve.deadline.total")
+        self._c_deadline_misses = m.counter("serve.deadline.misses")
+        self._c_live = m.counter("serve.occupancy.live_rounds")
+        self._c_slot_rounds = m.counter("serve.occupancy.slot_rounds")
+        self._c_wasted = m.counter("serve.occupancy.wasted_rounds")
+        self._c_resizes = m.counter("serve.resize.count")
+        self._c_grows = m.counter("serve.resize.grows")
+        self._c_shrinks = m.counter("serve.resize.shrinks")
+        self._c_vetoes = m.counter("serve.resize.vetoes")
+        self._c_migrations = m.counter("serve.resize.migrations")
+        self._c_served = m.counter("serve.served")
+        self._c_spec = m.counter("serve.spec.count")
+        self._c_spec_confirms = m.counter("serve.spec.confirms")
+        self._c_spec_rollbacks = m.counter("serve.spec.rollbacks")
+        self._c_spec_wasted = m.counter("serve.spec.rounds_wasted")
+        self._c_drain_lag = m.counter("serve.drain_lag_rounds")
+        self._c_dispatches = m.counter("serve.dispatches")
+        # heterogeneous-lane accounting (all zero on a homogeneous grid)
+        self._c_lane_skips = m.counter("serve.lanes.skips")
+        self._c_lane_nonexact = m.counter("serve.lanes.served_nonexact")
+        self._c_lane_promotes = m.counter("serve.lanes.promotes")
+        self._h_latency = m.histogram("serve.latency_rounds")
+        self._h_speedup = m.histogram("serve.speedup")
+        self._h_gap = m.histogram("serve.round_gap_s")
+        m.gauge("serve.overlap").set(float(self.overlap))
+        self._last_dispatch_done: Optional[float] = None
+        self._submit_wall: Dict[int, float] = {}
+
+    # -- grid management ------------------------------------------------------
+
+    def _spec(self, s: int) -> GridSpec:
+        return GridSpec(num_slots=s, num_cores=self.k,
+                        latent_shape=self.latent_shape,
+                        lane_profile=self.lane_profile)
+
+    def _install_grid(self, s: int):
+        """Make bucket ``s`` the current grid, at its initial state
+        (construction, or a resize: the previous grid's buffers are left
+        alone, so a migration can still read them)."""
+        self.s = s
+        self.spec = self._spec(s)
+        self._prog = self._progs[s]
+        self.state = self._prog.reset()
         self._slot_item: List[Optional[QueueItem]] = [None] * s
         self._slot_iseq: List[Optional[list]] = [None] * s
         self._slot_rtol = np.full((s,), self.rtol, np.float32)  # host mirror
@@ -319,45 +436,133 @@ class ContinuousEngine:
         # wall clock of each lane's committed admission: the start of its
         # request/compute span on the per-slot trace track
         self._admit_wall: List[float] = [0.0] * s
-        # the overlap loop's readback lands in pinned host buffers, one set
-        # per grid: flags [3, S] (done, rounds_used, chosen) and the due
-        # lanes' results, copied without blocking the host
-        self._rb_flags = self._rb_result = None
-        if self.overlap and self.device.type == "cuda":
-            self._rb_flags = torch.empty((3, s), dtype=torch.int32,
-                                         pin_memory=True)
-            self._rb_result = torch.empty(
-                tuple(self.state.result.shape),
-                dtype=self.state.result.dtype, pin_memory=True)
-        self.queue = AdmissionQueue(aging_rounds=aging_rounds)
-        self.round_count = 0  # plain attribute: trace drivers write it
-        self.preempted_rids: set = set()
-        m = self.metrics
-        m.gauge("serve.slots").set(float(s))
-        self._c_host_syncs = m.counter("serve.host_syncs")
-        self._c_preempt = m.counter("serve.preempt.count")
-        self._c_preempt_wasted = m.counter("serve.preempt.rounds_wasted")
-        self._c_deadline_total = m.counter("serve.deadline.total")
-        self._c_deadline_misses = m.counter("serve.deadline.misses")
-        self._c_live = m.counter("serve.occupancy.live_rounds")
-        self._c_slot_rounds = m.counter("serve.occupancy.slot_rounds")
-        self._c_wasted = m.counter("serve.occupancy.wasted_rounds")
-        self._c_served = m.counter("serve.served")
-        self._c_spec = m.counter("serve.spec.count")
-        self._c_spec_confirms = m.counter("serve.spec.confirms")
-        self._c_spec_rollbacks = m.counter("serve.spec.rollbacks")
-        self._c_spec_wasted = m.counter("serve.spec.rounds_wasted")
-        self._c_drain_lag = m.counter("serve.drain_lag_rounds")
-        self._c_dispatches = m.counter("serve.dispatches")
-        self._h_latency = m.histogram("serve.latency_rounds")
-        self._h_speedup = m.histogram("serve.speedup")
-        self._h_gap = m.histogram("serve.round_gap_s")
-        m.gauge("serve.overlap").set(float(self.overlap))
-        self._last_dispatch_done: Optional[float] = None
-        self._submit_wall: Dict[int, float] = {}
+        # lane mode each slot's resident request runs under (meaningful
+        # only while the slot is occupied; admissions overwrite it)
+        self._slot_mode: List[str] = ["exact"] * s
+        self.metrics.gauge("serve.slots").set(float(s))
         if self.tracer.enabled:
+            suffix = ""
+            if self.lane_profile is not None:
+                # D = draft, A = skip-only, R = refine
+                roles = "".join(
+                    "D" if sp.role == "draft" else
+                    ("A" if sp.skip else "R") for sp in self.lane_profile)
+                suffix = f" [{roles}]"
             for i in range(s):
-                self.tracer.label_track(("slots", i), f"slot {i}")
+                self.tracer.label_track(("slots", i), f"slot {i}{suffix}")
+
+    def _resize_to(self, new_s: int):
+        """Move the grid to capacity ``new_s``, migrating live lanes: every
+        migrated lane's carry and accept state is copied bit-exactly into
+        the lowest-indexed destination lanes (``executor.migrate``, on the
+        current stream after any round in flight on the old grid), so
+        in-flight requests cannot observe the resize."""
+        occupied = [i for i, it in enumerate(self._slot_item)
+                    if it is not None]
+        if len(occupied) > new_s:
+            raise RuntimeError(f"{len(occupied)} live lanes do not fit "
+                               f"{new_s} slots")
+        old_s, old_spec, old_state = self.s, self.spec, self.state
+        old = (self._slot_item, self._slot_iseq, self._slot_rtol,
+               self._admit_round, self._pred_done, self._admit_wall,
+               self._slot_mode)
+        t_mig = self.tracer.now()
+        self._install_grid(new_s)
+        if occupied:
+            host = np.zeros((2, new_s), np.int32)  # mask, source lane
+            for dst, s_old in enumerate(occupied):
+                host[0, dst], host[1, dst] = 1, s_old
+                self._slot_item[dst] = old[0][s_old]
+                self._slot_iseq[dst] = old[1][s_old]
+                self._slot_rtol[dst] = old[2][s_old]
+                self._admit_round[dst] = old[3][s_old]
+                self._pred_done[dst] = old[4][s_old]
+                self._slot_mode[dst] = old[6][s_old]
+                self.migrated_rids.add(old[0][s_old].payload.rid)
+                # a migration ends the lane's residency on the old slot
+                # track and opens one on the destination: per-slot compute
+                # spans stay nest-or-disjoint across the renumbering
+                self.tracer.span("request/compute", old[5][s_old],
+                                 round_idx=self.round_count,
+                                 track=("slots", s_old), t1=t_mig,
+                                 rid=old[0][s_old].payload.rid,
+                                 migrated=True)
+                self._admit_wall[dst] = t_mig
+            self._c_migrations.inc(len(occupied))
+            t0 = self.tracer.now()
+            dev = _to_device(torch.from_numpy(host), self.device)
+            self.state = self.executor.migrate(old_spec, self.spec)(
+                self.state, old_state, dev[0] != 0, dev[1])
+            self.tracer.span("dispatch/migrate", t0,
+                             round_idx=self.round_count, lanes=len(occupied))
+            self.tracer.instant("migrate/lanes", round_idx=self.round_count,
+                                lanes=len(occupied), src=old_s, dst=new_s)
+        self._c_resizes.inc()
+        self.tracer.instant("resize/grow" if new_s > old_s else
+                            "resize/shrink", round_idx=self.round_count,
+                            src=old_s, dst=new_s, live=len(occupied))
+        self._buckets_visited.add(new_s)
+
+    def _next_lower_bucket(self) -> Optional[int]:
+        i = self._ladder.index(self.s)
+        return self._ladder[i - 1] if i > 0 else None
+
+    def _maybe_resize(self):
+        """Demand paging: grow on queued demand, shrink on sustained idle."""
+        if self.min_slots == self.max_slots:
+            return
+        live_ct = sum(it is not None for it in self._slot_item)
+        if len(self.queue) > self.s - live_ct and self.s < self.max_slots:
+            demand = live_ct + len(self.queue)
+            target = self.s
+            for b in self._ladder:
+                if b > self.s:
+                    target = b
+                    if b >= demand:
+                        break
+            self._resize_to(target)  # growth is never vetoed
+            self._c_grows.inc()
+            self._low_streak = 0
+            return
+        lower = self._next_lower_bucket()
+        if lower is None or live_ct > lower \
+                or self._low_streak < self.resize_hysteresis:
+            return
+        # queued work does not block the proposal: whether the smaller grid
+        # can still serve it (deadlines included) is the policy's call
+        proposal = ResizeProposal(current_slots=self.s, new_slots=lower,
+                                  live_lanes=live_ct, queued=len(self.queue))
+        view = self._view([i for i, it in enumerate(self._slot_item)
+                           if it is None])
+        if self.policy.consider_resize(view, proposal) is None:
+            self._c_vetoes.inc()
+            self.tracer.instant("resize/veto", round_idx=self.round_count,
+                                src=self.s, dst=lower, live=live_ct,
+                                queued=len(self.queue))
+            self._low_streak = 0  # re-arm: ask again after a full window
+            return
+        self._resize_to(lower)
+        self._c_shrinks.inc()
+        self._low_streak = 0
+
+    def _update_streak(self, live_before: int, live_after: int, ran: int):
+        """Shrink hysteresis in device-round units, for both host loops.
+
+        ``ran`` rounds are credited when occupancy fit the next bucket down
+        for the whole step (``live_before``, after admission, and
+        ``live_after``, after the drain, both within it). A step during
+        which occupancy dropped into range credits exactly one round
+        whatever ``ran``: the multi-round loop exits on the accept that
+        freed the lane, so only the chunk's last round ran at the lower
+        occupancy. ``ran == 0`` (an overlap verify-only step) changes
+        nothing."""
+        lower = self._next_lower_bucket()
+        if lower is None or live_after > lower:
+            self._low_streak = 0
+        elif live_before <= lower:
+            self._low_streak += ran
+        elif ran > 0:
+            self._low_streak = 1
 
     # -- host loop ------------------------------------------------------------
 
@@ -393,9 +598,22 @@ class ContinuousEngine:
             lanes.append(LaneView(
                 slot=slot, item=item, rounds_done=done_r,
                 est_remaining=self.cost.remaining_rounds(
-                    self._slot_iseq[slot], done_r, item.rtol),
+                    self._slot_iseq[slot], done_r, item.rtol,
+                    mode=self._slot_mode[slot]),
                 invested=done_r + item.rounds_credit))
         return lanes
+
+    def _view(self, free, now: Optional[int] = None, lanes=None,
+              speculative: bool = False) -> EngineView:
+        """The policy's view of the engine at round ``now`` (default: the
+        current round) with ``free`` slots and ``lanes`` in flight
+        (default: every occupied slot)."""
+        return EngineView(now=self.round_count if now is None else now,
+                          queue=self.queue, free_slots=free,
+                          lanes=self._lane_views() if lanes is None
+                          else lanes, cost=self.cost,
+                          speculative=speculative,
+                          lane_modes=self.lane_profile is not None)
 
     def _apply_decision(self, dec: Decision, now: Optional[int] = None,
                         record_undo: bool = False
@@ -404,8 +622,9 @@ class ContinuousEngine:
         credited, then admissions through the masked admit program) at
         round ``now`` (default: the current round). The admitted requests'
         noise is drawn on the device; the slot mask, init sequences and
-        tolerances go up in one copy staged through pinned memory, so an
-        admission never blocks the host.
+        tolerances (and, on a lane grid, the gates of each admitted
+        request's lane mode) go up in one copy staged through pinned
+        memory, so an admission never blocks the host.
 
         ``record_undo=True`` returns a :class:`_DecisionUndo` that reverses
         every host-side effect (the overlap loop applies decisions
@@ -421,7 +640,8 @@ class ContinuousEngine:
                 undo.prior[slot] = (
                     self._slot_item[slot], self._slot_iseq[slot],
                     float(self._slot_rtol[slot]), self._admit_round[slot],
-                    self._pred_done[slot], self._admit_wall[slot])
+                    self._pred_done[slot], self._admit_wall[slot],
+                    self._slot_mode[slot])
         for slot in dec.evictions:
             item = self._slot_item[slot]
             ran = now - self._admit_round[slot]
@@ -443,32 +663,49 @@ class ContinuousEngine:
         if not dec.admissions:
             return undo
         # one host array: mask, the init sequences and the f32 tolerances'
-        # bits, as int32 columns [S, 1 + K + 1]
-        host = np.zeros((self.s, self.k + 2), np.int32)
+        # bits, as int32 columns [S, 1 + K + 1]; a lane grid adds each
+        # admitted request's gates: draft_on and the skip threshold's bits
+        hetero = self.lane_profile is not None
+        kk = self.k
+        host = np.zeros((self.s, kk + 2 + 2 * hetero), np.int32)
         x0 = torch.zeros((self.s,) + self.latent_shape, device=self.device)
         wall = self.tracer.now()
         for a in dec.admissions:
             host[a.slot, 0] = 1
-            host[a.slot, 1:self.k + 1] = a.i_seq
+            host[a.slot, 1:kk + 1] = a.i_seq
             self._slot_rtol[a.slot] = a.item.rtol
             self._slot_item[a.slot] = a.item
             self._slot_iseq[a.slot] = list(a.i_seq)
             self._admit_round[a.slot] = now
             self._admit_wall[a.slot] = wall
+            # the policy's Admission.mode, honored only by a lane grid: a
+            # homogeneous one runs (and prices) everything exact
+            mode = a.mode if hetero else "exact"
+            self._slot_mode[a.slot] = mode
             self._pred_done[a.slot] = self.cost.predict_done_round(
-                a.i_seq, a.item.rtol, now)
+                a.i_seq, a.item.rtol, now, mode=mode)
+            if hetero:
+                # draft lanes smooth only in "draft"; skipping arms in both
+                # non-exact modes; "exact" zeroes both gates, so every
+                # lane-masked select picks the exact operand bitwise
+                host[a.slot, kk + 2] = mode == "draft"
+                host[a.slot, kk + 3] = np.float32(
+                    self.lane_skip_tau if mode in ("draft", "adaptive")
+                    else 0.0).view(np.int32)
             x0[a.slot] = request_noise(a.item.payload, self.latent_shape,
                                        self.device)
             if record_undo:
                 undo.admissions.append((a.slot, a.item))
             else:
                 self._trace_admit(a.slot, a.item, now, wall)
-        host[:, self.k + 1] = self._slot_rtol.view(np.int32)
+        host[:, kk + 1] = self._slot_rtol.view(np.int32)
         t0 = self.tracer.now()
         dev = _to_device(torch.from_numpy(host), self.device)
+        gates = ((dev[:, kk + 2] != 0, dev[:, kk + 3].view(torch.float32))
+                 if hetero else ())
         self.state = self._prog.admit(
-            self.state, dev[:, 0] != 0, x0, dev[:, 1:self.k + 1],
-            dev[:, self.k + 1].view(torch.float32))
+            self.state, dev[:, 0] != 0, x0, dev[:, 1:kk + 1],
+            dev[:, kk + 1].view(torch.float32), *gates)
         self.tracer.span("dispatch/admit", t0, round_idx=now,
                          lanes=len(dec.admissions))
         return undo
@@ -538,7 +775,7 @@ class ContinuousEngine:
         for slot, prior in undo.prior.items():
             (self._slot_item[slot], self._slot_iseq[slot], rtol,
              self._admit_round[slot], self._pred_done[slot],
-             self._admit_wall[slot]) = prior
+             self._admit_wall[slot], self._slot_mode[slot]) = prior
             self._slot_rtol[slot] = rtol
 
     def _amortizable(self) -> bool:
@@ -565,8 +802,10 @@ class ContinuousEngine:
         busy grid waited for the host only when the device had run dry. The
         device idle share comes from the profiler, not from this timer."""
         t = time.monotonic()
+        gap = {}
         if self._last_dispatch_done is not None:
-            self._h_gap.observe(max(0.0, t - self._last_dispatch_done))
+            gap["gap_s"] = max(0.0, t - self._last_dispatch_done)
+            self._h_gap.observe(gap["gap_s"])
         self._c_dispatches.inc()
         self.metrics.counter(f"serve.dispatches.{kind}").inc()
         t0 = self.tracer.now()
@@ -576,21 +815,26 @@ class ContinuousEngine:
                 else prog(self.state, rounds)
         self._last_dispatch_done = time.monotonic()
         if self.tracer.enabled:
+            # each dispatch span carries its own host gap, so the round-gap
+            # contract is checkable from the trace alone (obs check)
             self.tracer.span(f"dispatch/{kind}", t0,
                              round_idx=self.round_count, rounds=rounds,
-                             live=live)
+                             live=live, **gap)
             self.tracer.counter("occupancy", live)
             self.tracer.counter("queue_depth", len(self.queue))
         return out
 
     def _finish_lane(self, item: QueueItem, i_seq, ru: int, chosen_k: int,
                      sample, acc_round: int, slot: int = -1,
-                     admit_wall: float = 0.0) -> tuple[int, SampleOut]:
+                     admit_wall: float = 0.0, mode: str = "exact",
+                     skips: int = 0) -> tuple[int, SampleOut]:
         """Account one drained lane. ``acc_round`` is the absolute engine
         round at which the accept fired: ``round_count`` at the drain in
         the synchronous loop, ``admit_round + rounds_used`` in the overlap
         loop (the same number, whenever the host discovers the accept).
-        Latency is measured from submission."""
+        Latency is measured from submission. This drain commit is the only
+        place the lane instants (``lane/skip``, ``lane/promote``) are
+        emitted, so a rolled-back speculative step leaves none."""
         latency = acc_round - item.submit_round
         missed = False
         if math.isfinite(item.deadline_round):
@@ -601,8 +845,17 @@ class ContinuousEngine:
                         accepted_core=chosen_k,
                         speedup=self.n / max(1, ru),
                         latency_rounds=latency)
-        self.cost.observe_accept(i_seq, item.rtol, ru)
+        self.cost.observe_accept(i_seq, item.rtol, ru, mode=mode)
+        self.cost.observe_skips(mode, skips, ru)
         self._c_served.inc()
+        self._c_lane_skips.inc(skips)
+        promoted = (self.lane_profile is not None
+                    and 0 <= chosen_k < len(self.lane_profile)
+                    and self.lane_profile[chosen_k].role == "draft")
+        if mode != "exact":
+            self._c_lane_nonexact.inc()
+        if promoted:
+            self._c_lane_promotes.inc()
         self._h_latency.observe(latency)
         self._h_speedup.observe(res.speedup)
         if self.tracer.enabled:
@@ -611,6 +864,14 @@ class ContinuousEngine:
                              round_idx=acc_round, track=("slots", slot),
                              rid=rid, rounds_used=ru, core=chosen_k,
                              latency_rounds=latency)
+            if skips > 0:
+                self.tracer.instant("lane/skip", round_idx=acc_round,
+                                    track=("slots", slot), rid=rid,
+                                    count=skips, mode=mode)
+            if promoted:
+                self.tracer.instant("lane/promote", round_idx=acc_round,
+                                    track=("slots", slot), rid=rid,
+                                    core=chosen_k, mode=mode)
             if missed:
                 self.tracer.instant("deadline/miss", round_idx=acc_round,
                                     rid=rid, slot=slot,
@@ -621,7 +882,8 @@ class ContinuousEngine:
 
     def step(self, max_rounds_on_device: int = 1
              ) -> list[tuple[int, SampleOut]]:
-        """Policy decision -> lockstep round(s) -> drain. Returns finished
+        """Resize check -> policy decision -> lockstep round(s) -> drain.
+        Returns finished
         requests as [(rid, SampleOut)]; with ``overlap=True`` through the
         speculative loop (:meth:`_step_overlap`). ``max_rounds_on_device``
         R > 1 lets one device program run up to R rounds."""
@@ -634,15 +896,26 @@ class ContinuousEngine:
         self._c_slot_rounds.inc(self.s * ran)
         self._c_wasted.inc((self.s - live_ct) * ran)
 
+    def _flags(self, st):
+        """The [3 or 4, S] int32 flags of ``st``: done, rounds_used, chosen
+        and, on a lane grid, each slot's committed skips."""
+        rows = [st.done.to(torch.int32), st.rounds_used, st.chosen]
+        if self.lane_profile is not None:
+            rows.append(st.lanes.skips.sum(dim=1, dtype=torch.int32))
+        return torch.stack(rows)
+
     def _step_sync(self, max_rounds_on_device: int = 1
                    ) -> list[tuple[int, SampleOut]]:
+        self._maybe_resize()
         free = [i for i, it in enumerate(self._slot_item) if it is None]
         if len(self.queue) and (free or self.policy.preemptive):
-            view = EngineView(now=self.round_count, queue=self.queue,
-                              free_slots=free, lanes=self._lane_views(),
-                              cost=self.cost)
-            self._apply_decision(self.policy.decide(view))
+            self._apply_decision(self.policy.decide(self._view(free)))
         if not self.has_inflight:
+            # a fully idle grid is the lowest occupancy there is: idle steps
+            # count toward the shrink hysteresis, so a drained engine still
+            # pages its slots out (each idle step ~ one round)
+            if self.min_slots != self.max_slots and not len(self.queue):
+                self._low_streak += 1
             self._last_dispatch_done = None  # gap timer: busy periods only
             return []
 
@@ -653,15 +926,15 @@ class ContinuousEngine:
         else:
             self.state, ran_dev = self._dispatch(live_ct), None
         t0 = self.tracer.now()
-        st = self.state
-        flags = torch.stack((st.done.to(torch.int32), st.rounds_used,
-                             st.chosen)).reshape(-1)
+        flags = self._flags(self.state).reshape(-1)
         if ran_dev is not None:
             flags = torch.cat((flags, ran_dev.reshape(1)))
         flags = flags.cpu().numpy()  # ONE sync
         ran = int(flags[-1]) if ran_dev is not None else 1
-        done = flags[:self.s].astype(bool)
-        rounds_used, chosen = flags[self.s:2 * self.s], flags[2 * self.s:]
+        s = self.s
+        done = flags[:s].astype(bool)
+        rounds_used, chosen = flags[s:2 * s], flags[2 * s:3 * s]
+        skips = flags[3 * s:4 * s] if self.lane_profile is not None else None
         self.tracer.span("verify/readback", t0, round_idx=self.round_count,
                          live=live_ct)
         self._c_host_syncs.inc()
@@ -680,10 +953,14 @@ class ContinuousEngine:
             out.append(self._finish_lane(
                 item, self._slot_iseq[slot], int(rounds_used[slot]),
                 int(chosen[slot]), results[j], acc_round=self.round_count,
-                slot=slot, admit_wall=self._admit_wall[slot]))
+                slot=slot, admit_wall=self._admit_wall[slot],
+                mode=self._slot_mode[slot],
+                skips=int(skips[slot]) if skips is not None else 0))
             self._slot_item[slot] = None  # slot is free; done flag stays
             self._pred_done[slot] = None  # until the next admission clears
             # it (the lane is frozen)
+        self._update_streak(live_ct, sum(it is not None
+                                         for it in self._slot_item), ran)
         if not self.has_inflight:
             self._last_dispatch_done = None
         return out
@@ -713,32 +990,35 @@ class ContinuousEngine:
         round: on one stream a copy issued after round R+1 would wait for
         R+1 and turn the overlap back into the synchronous loop. So the
         flags and the gathered results are copied with ``non_blocking``
-        into this grid's pinned buffers and an event is recorded after
-        them; :meth:`_collect_readback` waits for that event alone."""
-        flags = torch.stack((st.done.to(torch.int32), st.rounds_used,
-                             st.chosen))
+        into the current grid's pinned buffers and an event is recorded
+        after them; :meth:`_collect_readback` waits for that event alone.
+        The readback is collected in the same step, before any resize
+        can install another grid."""
+        flags = self._flags(st)
         if self.device.type != "cuda":
             return flags.numpy(), st.result[torch.as_tensor(due)]
+        rb_flags, rb_result = self._rb[self.s]
         idx = _to_device(torch.tensor(due, dtype=torch.int64), self.device)
-        self._rb_flags.copy_(flags, non_blocking=True)
-        self._rb_result[:len(due)].copy_(st.result.index_select(0, idx),
-                                         non_blocking=True)
+        rb_flags.copy_(flags, non_blocking=True)
+        rb_result[:len(due)].copy_(st.result.index_select(0, idx),
+                                   non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return event, len(due)
+        return event, rb_flags, rb_result[:len(due)]
 
     def _collect_readback(self, pending):
         """Block until the readback has landed (the ONE host sync of an
-        event step); returns (done, rounds_used, chosen, due results) on
-        the host."""
+        event step); returns (done, rounds_used, chosen, skips or None, due
+        results) on the host."""
         if self.device.type != "cuda":
             flags, res = pending
         else:
-            event, n = pending
+            event, rb_flags, rb_res = pending
             event.synchronize()
-            flags = self._rb_flags.numpy().copy()
-            res = self._rb_result[:n].clone()  # the buffer is reused
-        return flags[0].astype(bool), flags[1], flags[2], res
+            flags = rb_flags.numpy().copy()
+            res = rb_res.clone()  # the buffer is reused
+        skips = flags[3] if self.lane_profile is not None else None
+        return flags[0].astype(bool), flags[1], flags[2], skips, res
 
     def _step_overlap(self, max_rounds_on_device: int = 1
                       ) -> list[tuple[int, SampleOut]]:
@@ -766,8 +1046,12 @@ class ContinuousEngine:
         Drained results come from the kept pre-round state, and their
         latency/deadline accounting uses ``admit_round + rounds_used``:
         the synchronous loop's numbers, whenever the host discovers the
-        accept.
+        accept. An elastic resize comes first, as in the synchronous loop:
+        a round still in flight on the old grid precedes the migration in
+        stream order, and this step's readback and rollback anchor belong
+        to the grid installed here.
         """
+        self._maybe_resize()
         now = self.round_count
         occupied = [i for i, it in enumerate(self._slot_item)
                     if it is not None]
@@ -775,6 +1059,8 @@ class ContinuousEngine:
         due = [s for s in occupied if self._pred_done[s] is None
                or self._pred_done[s] <= now]
         if not occupied and not len(self.queue):
+            if self.min_slots != self.max_slots:
+                self._low_streak += 1
             self._last_dispatch_done = None
             return []
         want_decide = bool(len(self.queue)) and \
@@ -792,6 +1078,7 @@ class ContinuousEngine:
                                             "roll" if k > 1 else "round", k)
             self.round_count = now + k
             self._count_rounds(len(occupied), k)
+            self._update_streak(len(occupied), len(occupied), k)
             return []
 
         # -- event step: speculate + dispatch ahead of the verify ----------
@@ -799,7 +1086,8 @@ class ContinuousEngine:
         # drain metadata BEFORE the decision may overwrite it (a confirmed
         # speculative admission re-targets the due slot in the same step)
         due_meta = {s: (self._slot_item[s], self._slot_iseq[s],
-                        self._admit_round[s], self._admit_wall[s])
+                        self._admit_round[s], self._admit_wall[s],
+                        self._slot_mode[s])
                     for s in due}
         dec, undo, spec_admits = Decision(), None, []
         dispatched = None
@@ -811,16 +1099,14 @@ class ContinuousEngine:
                 prev = self._prog.keep(self.state)
                 pending = self._enqueue_readback(prev, due)
             if want_decide:
-                view = EngineView(
-                    now=now, queue=self.queue,
-                    # predicted post-drain state: due lanes presumed
-                    # finished; sorted() matches the ascending free list
-                    # of the synchronous loop at the same step
-                    free_slots=sorted(free + due),
+                # predicted post-drain state: due lanes presumed finished;
+                # sorted() matches the ascending free list of the
+                # synchronous loop at the same step
+                dec = self.policy.decide(self._view(
+                    sorted(free + due), now=now,
                     lanes=[ln for ln in self._lane_views()
                            if ln.slot not in due_meta],
-                    cost=self.cost, speculative=need_verify)
-                dec = self.policy.decide(view)
+                    speculative=need_verify))
                 spec_admits = [a.slot for a in dec.admissions
                                if a.slot in due_meta]
                 if dec.admissions or dec.evictions:
@@ -840,7 +1126,7 @@ class ContinuousEngine:
         out: list[tuple[int, SampleOut]] = []
         if need_verify:
             t0 = self.tracer.now()
-            done, rounds_used, chosen, due_res = \
+            done, rounds_used, chosen, skips, due_res = \
                 self._collect_readback(pending)
             self.tracer.span("verify/readback", t0, round_idx=now,
                              due=len(due))
@@ -859,18 +1145,16 @@ class ContinuousEngine:
                 self.state = self._prog.restore(prev)
                 self._undo_decision(undo)
                 out += self._drain_due(due, due_meta, done, rounds_used,
-                                       chosen, due_res)
+                                       chosen, due_res, skips)
                 for s in due:
                     if not done[s] and self._slot_item[s] is not None:
                         self._pred_done[s] = now + 1  # re-verify next step
                 free2 = [i for i, it in enumerate(self._slot_item)
                          if it is None]
                 if len(self.queue) and (free2 or self.policy.preemptive):
-                    view = EngineView(now=now, queue=self.queue,
-                                      free_slots=free2,
-                                      lanes=self._lane_views(),
-                                      cost=self.cost)
-                    self._apply_decision(self.policy.decide(view), now=now)
+                    self._apply_decision(
+                        self.policy.decide(self._view(free2, now=now)),
+                        now=now)
                 if self.has_inflight:
                     dispatched = self._dispatch(sum(
                         it is not None for it in self._slot_item))
@@ -882,7 +1166,7 @@ class ContinuousEngine:
                                         slots=list(spec_admits))
                 adm_slots = {a.slot for a in dec.admissions}
                 out += self._drain_due(due, due_meta, done, rounds_used,
-                                       chosen, due_res)
+                                       chosen, due_res, skips)
                 self._trace_commit_undo(undo, now)
                 for s in due:
                     if not done[s] and s not in adm_slots:
@@ -895,29 +1179,32 @@ class ContinuousEngine:
                         self._c_drain_lag.inc()
                         self._pred_done[s] = now + 1
 
+        live_now = sum(it is not None for it in self._slot_item)
         if dispatched is not None:
             self.state = dispatched
-            self._count_rounds(sum(it is not None for it in self._slot_item))
+            self._count_rounds(live_now)
+        self._update_streak(len(occupied), live_now,
+                            int(dispatched is not None))
         if not self.has_inflight:
             self._last_dispatch_done = None
         return out
 
     def _drain_due(self, due, due_meta, done, rounds_used, chosen,
-                   due_res) -> list[tuple[int, SampleOut]]:
+                   due_res, skips=None) -> list[tuple[int, SampleOut]]:
         """Drain the due lanes whose accept fired, from the kept pre-round
         state's readback. A slot whose speculative re-admission
         was confirmed already carries its NEW item in the mirrors: the old
         lane's identity comes from ``due_meta`` and the slot stays taken."""
         out = []
         for j, s in enumerate(due):
-            item, i_seq, admit_round, admit_wall = due_meta[s]
+            item, i_seq, admit_round, admit_wall, mode = due_meta[s]
             if not done[s]:
                 continue
             ru = int(rounds_used[s])
-            out.append(self._finish_lane(item, i_seq, ru, int(chosen[s]),
-                                         due_res[j],
-                                         acc_round=admit_round + ru,
-                                         slot=s, admit_wall=admit_wall))
+            out.append(self._finish_lane(
+                item, i_seq, ru, int(chosen[s]), due_res[j],
+                acc_round=admit_round + ru, slot=s, admit_wall=admit_wall,
+                mode=mode, skips=int(skips[s]) if skips is not None else 0))
             if self._slot_item[s] is item:
                 self._slot_item[s] = None  # freed; stale flags stay until
                 self._pred_done[s] = None  # the next admission (frozen lane)
@@ -928,7 +1215,7 @@ class ContinuousEngine:
                           ) -> list[tuple[int, SampleOut]]:
         """Step until queue and grid are empty; returns all (rid, SampleOut)."""
         budget = max_rounds if max_rounds is not None else \
-            2 * (len(self.queue) + self.s) * (self.n + 1)  # 2x: preempt
+            2 * (len(self.queue) + self.max_slots) * (self.n + 1)  # preempt
         limit = self.round_count + budget
         served: list[tuple[int, SampleOut]] = []
         while len(self.queue) or self.has_inflight:
@@ -941,8 +1228,8 @@ class ContinuousEngine:
 
     def stats(self) -> dict:
         """Throughput + latency percentiles in lockstep-round units, with
-        the reference's keys (features not ported yet at their idle
-        values), rendered from the metrics registry."""
+        the reference's keys (and ``programs``), rendered from the metrics
+        registry."""
         served = int(self._c_served.value)
         rounds = max(1, self.round_count)
         deadline_total = int(self._c_deadline_total.value)
@@ -978,22 +1265,23 @@ class ContinuousEngine:
             "preemptions": int(self._c_preempt.value),
             "preempted_rounds_wasted": int(self._c_preempt_wasted.value),
             "num_slots": self.s,
-            "min_slots": self.s,
-            "max_slots": self.s,
+            "min_slots": self.min_slots,
+            "max_slots": self.max_slots,
             "wasted_slot_rounds": int(self._c_wasted.value),
-            "resizes": 0,
-            "grows": 0,
-            "shrinks": 0,
-            "resize_vetoes": 0,
-            "migrations": 0,
-            "buckets_visited": [self.s],
+            "resizes": int(self._c_resizes.value),
+            "grows": int(self._c_grows.value),
+            "shrinks": int(self._c_shrinks.value),
+            "resize_vetoes": int(self._c_vetoes.value),
+            "migrations": int(self._c_migrations.value),
+            "buckets_visited": sorted(self._buckets_visited),
             "retraces": self.executor.retraces,
-            "migration_traces": 0,
-            "lane_modes_enabled": False,
-            "lane_profile": [],
-            "lane_skips": 0,
-            "lane_served_nonexact": 0,
-            "lane_promotes": 0,
+            "migration_traces": self.executor.migration_traces,
+            "lane_modes_enabled": self.lane_profile is not None,
+            "lane_profile": [sp.role + ("+skip" if sp.skip else "")
+                             for sp in (self.lane_profile or ())],
+            "lane_skips": int(self._c_lane_skips.value),
+            "lane_served_nonexact": int(self._c_lane_nonexact.value),
+            "lane_promotes": int(self._c_lane_promotes.value),
             "lane_skip_rate": {m: self.cost.skip_rate(m)
                                for m in ("adaptive", "draft")},
             "kernel_path": self.executor.kernel_path,
@@ -1002,5 +1290,16 @@ class ContinuousEngine:
         }
 
     def write_trace(self, path: str, meta: Optional[dict] = None) -> dict:
-        raise _not_ported("write_trace (Chrome trace export)", 9,
-                          "obs export/check")
+        """Export this engine's trace and metrics snapshot as one Chrome
+        trace-event JSON file (open it in ui.perfetto.dev; verify it with
+        ``python -m repro_torch.obs check``). Host-side only: it reads the
+        tracer's buffer and the registry, never the device."""
+        from repro_torch.obs import write_chrome_trace
+        self.stats()  # refresh the snapshot gauges
+        info = {"engine": "continuous", "policy": self.policy.name,
+                "overlap": self.overlap, "n_steps": self.n, "k": self.k,
+                "lane_modes": self.lane_profile is not None}
+        if meta:
+            info.update(meta)
+        return write_chrome_trace(path, self.tracer, metrics=self.metrics,
+                                  meta=info)

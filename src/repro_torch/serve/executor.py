@@ -1,14 +1,17 @@
 """Round executor: the serve programs behind one keyed cache — port of
 ``repro.serve.executor``.
 
-A :class:`GridSpec` names a slot grid (S, K, latent shape, dtype, and an
-optional static cap on the multi-round loop) and keys a bounded LRU cache
-of its program set — the lockstep ``round``, the multi-round ``multi``
-(exits at the first new accept) and ``roll`` (no accept exit), the masked
-``admit`` and ``init_state``; a :class:`StreamSpec` keys the batch
-streaming-accept program (``StreamingSampler``'s). ``retraces`` /
-``stream_traces`` count cache misses exactly as the reference counts jit
-traces (one per distinct spec ever, cache hits thereafter).
+A :class:`GridSpec` names a slot grid (S, K, latent shape, dtype, an
+optional static cap on the multi-round loop, and an optional lane profile)
+and keys a bounded LRU cache of its program set — the lockstep ``round``,
+the multi-round ``multi`` (exits at the first new accept) and ``roll`` (no
+accept exit), the masked ``admit`` and ``init_state``; a
+:class:`StreamSpec` keys the batch streaming-accept program
+(``StreamingSampler``'s). ``retraces`` / ``stream_traces`` count cache
+misses exactly as the reference counts jit traces (one per distinct spec
+ever, cache hits thereafter). ``migrate(src_spec, dst_spec)`` is the lane
+migration of an elastic resize: ``core.chords.gather_slots`` over a whole
+:class:`SlotState`, a bit-exact row copy into the destination grid's state.
 
 Two kinds of program set, named by ``RoundExecutor.programs``:
 
@@ -28,9 +31,13 @@ kernel as [S, K] scalars and ``accept_from_sums`` finishes the decision.
 On the CPU the kernel's plain version runs and outputs are bitwise those of
 ``use_kernel=False``; ``kernel_path`` names which implementation served.
 
+A ``lane_profile`` in the spec builds the heterogeneous round
+(``core.chords`` lanes): the state gains a ``LaneState`` and ``admit`` two
+per-slot gates (``draft_on``, ``skip_tau``); the profile is part of the
+key, so homogeneous and heterogeneous grids of one shape never alias.
+
 Not ported yet: the batch streaming program's device loop (ROADMAP.md
-queue 1 item 8b), lane migration (item 6), heterogeneous lane grids
-(item 7).
+queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -42,9 +49,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import scheduler
-from repro_torch.core.chords import (ChordsCarry, accept_from_sums,
-                                     accept_test, bmask, chords_init_carry,
-                                     make_round_body, make_slot_round_body,
+from repro_torch.core.chords import (ChordsCarry, LaneSpec,
+                                     accept_from_sums, accept_test, bmask,
+                                     chords_init_carry, gather_slots,
+                                     lane_init_state, make_round_body,
+                                     make_slot_round_body, reset_lanes,
                                      reset_slots, slot_init_carry)
 from repro_torch.kernels.device_loop.ops import loop_step
 from repro_torch.kernels.device_loop.ref import EXIT_ON_ACCEPT, FIRST
@@ -59,16 +68,22 @@ class GridSpec:
     ``device_rounds`` is an optional static CAP on the multi-round loop:
     ``multi`` never runs more than this many rounds a call, whatever budget
     it is called with. ``None`` (the default, and what the engines pass)
-    leaves the budget to the call, so varying R never rebuilds."""
+    leaves the budget to the call, so varying R never rebuilds.
+    ``lane_profile`` (a tuple of ``core.chords.LaneSpec`` or ``None``)
+    selects the heterogeneous round."""
 
     num_slots: int
     num_cores: int
     latent_shape: Tuple[int, ...]
     dtype: str = "float32"
     device_rounds: Optional[int] = None
+    lane_profile: Optional[Tuple[LaneSpec, ...]] = None
 
     def __post_init__(self):
         object.__setattr__(self, "latent_shape", tuple(self.latent_shape))
+        if self.lane_profile is not None:
+            object.__setattr__(self, "lane_profile",
+                               tuple(self.lane_profile))
         if self.num_slots < 1 or self.num_cores < 1:
             raise ValueError(f"need S >= 1 and K >= 1, got {self}")
 
@@ -101,6 +116,8 @@ class SlotState(NamedTuple):
     result: torch.Tensor        # [S, ...] accepted output (valid where done)
     rounds_used: torch.Tensor   # [S] lockstep rounds at accept (int32)
     chosen: torch.Tensor        # [S] accepted core index (int32)
+    # a LaneState on heterogeneous grids, () on homogeneous ones
+    lanes: object = ()
 
 
 class GridPrograms(NamedTuple):
@@ -111,23 +128,29 @@ class GridPrograms(NamedTuple):
     engine's verify and rollback) takes it with ``keep`` and puts it back
     with ``restore``; the eager programs are functional (they never write
     their inputs), so there ``keep`` and ``restore`` return their
-    argument."""
+    argument. ``put`` makes a state the grid's own (copied into the graph
+    grid's buffers; the state itself on the eager path) and ``reset``
+    gives the grid's state at ``init_state``'s values again, for an
+    elastic engine that comes back to a bucket it used before."""
 
     spec: GridSpec
     round: Callable       # (SlotState) -> SlotState
     roll: Callable        # (SlotState, k) -> SlotState: k rounds, no accept exit
     multi: Callable       # (SlotState, max_rounds) -> (SlotState, ran [] int32)
-    admit: Callable       # (SlotState, mask, x0, i_arr, rtol) -> SlotState
+    admit: Callable       # (SlotState, mask, x0, i_arr, rtol[, draft_on,
+    #                        skip_tau on a lane grid]) -> SlotState
     init_state: Callable  # () -> SlotState
     keep: Callable        # (SlotState) -> a copy later programs leave alone
     restore: Callable     # (kept SlotState) -> SlotState
+    put: Callable         # (SlotState) -> the grid's state holding it
+    reset: Callable       # () -> the grid's state at init values
     close: Callable       # () -> None: free the programs' device memory
     graphs: object = None  # serve.graphs.GraphGrid on the graph path
 
 
 def state_tensors(st: SlotState) -> list:
     """Every tensor of ``st``, in a fixed order."""
-    return [*st.carry, *st[1:]]
+    return [*st.carry, *st[1:-1], *st.lanes]
 
 
 def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
@@ -137,15 +160,24 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
     # use_kernel engages the FUSED round: solver step + rectification +
     # accept reduction in one kernel pass, err/out sums as [S, K] scalars
     fuse_accept = bool(use_kernel)
+    hetero = spec.lane_profile is not None
     slot_round = make_slot_round_body(drift, tgrid, n, k,
                                       use_kernel=use_kernel,
-                                      fuse_accept=fuse_accept)
+                                      fuse_accept=fuse_accept,
+                                      lane_profile=spec.lane_profile)
     rows = torch.arange(s, device=dev)
 
     def round_fn(st: SlotState) -> SlotState:
         """One lockstep round for every live slot + per-slot accept test."""
         active = st.live
-        if fuse_accept:
+        lanes = st.lanes
+        if hetero and fuse_accept:
+            carry, lanes, hit, err_sq, out_sq = slot_round(
+                st.carry, st.lanes, st.i_arr, st.rounds, active, st.last_out)
+        elif hetero:
+            carry, lanes, hit = slot_round(st.carry, st.lanes, st.i_arr,
+                                           st.rounds, active)
+        elif fuse_accept:
             carry, hit, err_sq, out_sq = slot_round(
                 st.carry, st.i_arr, st.rounds, active, st.last_out)
         else:
@@ -180,12 +212,20 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
             result=torch.where(bmask(acc, out), out, st.result),
             rounds_used=torch.where(acc, r, st.rounds_used),
             chosen=torch.where(acc, ek32, st.chosen),
+            lanes=lanes,
         )
 
-    def admit_fn(st: SlotState, mask, x0, i_arr, rtol) -> SlotState:
+    def admit_fn(st: SlotState, mask, x0, i_arr, rtol, draft_on=None,
+                 skip_tau=None) -> SlotState:
         """Masked admission: reset lanes + per-slot accept state in place.
         ``x0`` [S, ...] holds the admitted requests' noise (rows read only
-        where ``mask``); the engine draws it on the device."""
+        where ``mask``); the engine draws it on the device. A lane grid
+        also takes the admitted requests' gates (``draft_on`` [S] bool,
+        ``skip_tau`` [S] f32; 0 = exact)."""
+        if hetero != (draft_on is not None and skip_tau is not None):
+            raise ValueError(f"admit on {spec}: the lane gates draft_on and "
+                             f"skip_tau go with a lane profile, and only "
+                             f"with one")
         carry = reset_slots(st.carry, mask, x0, i_arr)
         m_lat = bmask(mask, st.last_out)
         zero = torch.zeros((), dtype=dtype, device=dev)
@@ -202,6 +242,8 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
             result=torch.where(m_lat, zero, st.result),
             rounds_used=torch.where(mask, z32, st.rounds_used),
             chosen=torch.where(mask, z32, st.chosen),
+            lanes=(reset_lanes(st.lanes, mask, draft_on, skip_tau)
+                   if hetero else ()),
         )
 
     def init_state() -> SlotState:
@@ -219,6 +261,7 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
             has_last=zs(torch.bool),
             last_out=lat, result=lat.clone(),
             rounds_used=zs(torch.int32), chosen=zs(torch.int32),
+            lanes=lane_init_state(s, k, dev) if hetero else (),
         )
 
     def _loop(st: SlotState, budget: int, flags: int):
@@ -267,7 +310,8 @@ def _build_grid(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool,
     return GridPrograms(spec=spec, round=fns["round"], roll=fns["roll"],
                         multi=fns["multi"], admit=fns["admit"],
                         init_state=fns["init_state"], keep=_same,
-                        restore=_same, close=lambda: None)
+                        restore=_same, put=_same,
+                        reset=fns["init_state"], close=lambda: None)
 
 
 def _build_stream(drift, tgrid, n: int, spec: StreamSpec,
@@ -332,7 +376,8 @@ class RoundExecutor:
     closures on CUDA too (the plain version the graphs are held to). A
     graph grid owns one set of state buffers, so it serves one engine: give
     each engine its own executor. An evicted graph grid frees its memory
-    and refuses further calls.
+    and refuses further calls; a grid an engine has pinned (its capacity
+    ladder) is never evicted.
     """
 
     def __init__(self, drift: Callable, tgrid, n_steps: Optional[int] = None,
@@ -354,6 +399,8 @@ class RoundExecutor:
             collections.OrderedDict()
         self._streams: "collections.OrderedDict[StreamSpec, Callable]" = \
             collections.OrderedDict()
+        self._pinned: set = set()      # specs no eviction may take
+        self._migrations: set = set()  # (src S, dst S, profile) pairs
         self._c_retraces = self.metrics.counter("executor.retraces")
         self._c_stream_traces = self.metrics.counter(
             "executor.stream_traces")
@@ -362,27 +409,45 @@ class RoundExecutor:
     def device(self) -> torch.device:
         return self.tgrid.device
 
-    @staticmethod
-    def _lru_get(cache, key, build, max_entries):
+    def _lru_get(self, cache, key, build):
         hit = cache.get(key)
         if hit is not None:
             cache.move_to_end(key)
             return hit, False
+        unpinned = [k for k in cache if k not in self._pinned]
+        if len(cache) >= self.max_entries and not unpinned:
+            raise RuntimeError(
+                f"the executor's cache holds {len(cache)} pinned grids "
+                f"(max_entries={self.max_entries}): reserve_grid_capacity "
+                f"before asking for another")
         val = build()
         cache[key] = val
-        while len(cache) > max_entries:
-            evicted = cache.popitem(last=False)[1]
+        while len(cache) > self.max_entries:  # least recently used first
+            evicted = cache.pop(unpinned.pop(0))
             if isinstance(evicted, GridPrograms):
                 evicted.close()
         return val, True
+
+    def reserve_grid_capacity(self, n: int) -> None:
+        """Make room for ``n`` more grid specs without evicting resident
+        ones. Engines call this with their bucket-ladder size, so a ladder
+        never evicts (or rebuilds) its own grids."""
+        self.max_entries = max(self.max_entries, len(self._grids) + int(n))
+
+    def pin(self, spec: GridSpec) -> GridPrograms:
+        """``grid(spec)``, kept in the cache from now on: an elastic
+        engine pins its whole ladder, so no eviction can take a grid that
+        holds live lanes or the source of a migration."""
+        progs = self.grid(spec)
+        self._pinned.add(spec)
+        return progs
 
     def grid(self, spec: GridSpec) -> GridPrograms:
         """Program set for ``spec`` — built once, cache-hit thereafter."""
         progs, missed = self._lru_get(
             self._grids, spec,
             lambda: _build_grid(self.drift, self.tgrid, self.n, spec,
-                                self.use_kernel, self.eager),
-            self.max_entries)
+                                self.use_kernel, self.eager))
         if missed:
             self._c_retraces.inc()
             self.tracer.instant("retrace", kind="grid",
@@ -396,14 +461,42 @@ class RoundExecutor:
         fn, missed = self._lru_get(
             self._streams, spec,
             lambda: _build_stream(self.drift, self.tgrid, self.n, spec,
-                                  self.use_kernel),
-            self.max_entries)
+                                  self.use_kernel))
         if missed:
             self._c_stream_traces.inc()
             self.tracer.instant("retrace", kind="stream",
                                 spec=f"K={spec.num_cores},"
                                      f"batched={spec.batched}")
         return fn
+
+    def migrate(self, src_spec: GridSpec, dst_spec: GridSpec) -> Callable:
+        """The lane-migration program ``(dst_state, src_state, mask,
+        src_idx) -> SlotState`` between two grids that differ only in S:
+        ``core.chords.gather_slots`` (every migrated lane a bit-exact row
+        copy) written into the destination grid's state (on the graph path
+        its static buffers, which its graphs read). It runs on the current
+        stream, after whatever is in flight on the source grid."""
+        if src_spec.num_cores != dst_spec.num_cores \
+                or src_spec.latent_shape != dst_spec.latent_shape \
+                or src_spec.dtype != dst_spec.dtype \
+                or src_spec.lane_profile != dst_spec.lane_profile:
+            raise ValueError(
+                f"can only migrate lanes between grids differing in S: "
+                f"{src_spec} -> {dst_spec}")
+        put = self.grid(dst_spec).put
+        self._migrations.add((src_spec.num_slots, dst_spec.num_slots,
+                              src_spec.lane_profile))
+
+        def run(dst, src, mask, src_idx):
+            return put(gather_slots(dst, src, mask, src_idx))
+
+        return run
+
+    @property
+    def migration_traces(self) -> int:
+        """Distinct (source S, destination S) migrations set up, the count
+        the reference takes from its jitted gather's cache."""
+        return len(self._migrations)
 
     @property
     def retraces(self) -> int:

@@ -17,7 +17,14 @@ launch over one set of static state buffers:
   eager ``roll`` (which stops when no lane is live) with no conditional
   node.
 - ``admit`` runs eagerly (a few launches) and writes the admitted lanes
-  into the buffers, bitwise what the functional admission returns.
+  into the buffers, bitwise what the functional admission returns; on a
+  lane grid it also takes the admitted requests' gates, which the captured
+  round reads from the buffers (no host decision inside a round).
+- ``put`` / ``reset``: an elastic engine's migration gathers lanes from
+  another grid's buffers and ``put`` copies the result into this grid's
+  (its graphs read fixed addresses); ``reset`` writes ``init_state``'s
+  values back when the engine returns to this grid. Both run eagerly on the
+  current stream, after whatever is in flight there.
 - ``keep`` / ``restore``: the rollback anchor. A graph overwrites the
   buffers in place, so the overlap engine copies the state into a second
   set on the device before a speculative step and copies it back on a
@@ -98,10 +105,13 @@ class GraphGrid:
 
     # -- the programs ---------------------------------------------------------
 
-    def _check(self, st: SlotState) -> None:
+    def _check_open(self) -> None:
         if self._closed:
             raise RuntimeError(f"grid {self.spec} was evicted from its "
                                f"executor's cache; its graphs are freed")
+
+    def _check(self, st: SlotState) -> None:
+        self._check_open()
         if st is not self.state:
             raise ValueError("a graph grid's programs advance its own state "
                              "buffers: pass the state init_state returned")
@@ -125,10 +135,21 @@ class GraphGrid:
             self.graph.replay()
         return self.state
 
-    def admit(self, st: SlotState, mask, x0, i_arr, rtol) -> SlotState:
+    def admit(self, st: SlotState, mask, x0, i_arr, rtol,
+              *gates) -> SlotState:
         self._check(st)
-        return copy_state(self.state,
-                          self._fns["admit"](st, mask, x0, i_arr, rtol))
+        return copy_state(self.state, self._fns["admit"](st, mask, x0, i_arr,
+                                                         rtol, *gates))
+
+    def put(self, st: SlotState) -> SlotState:
+        self._check_open()
+        return copy_state(self.state, st)
+
+    def reset(self) -> SlotState:
+        if not self._claimed:
+            raise RuntimeError("reset a grid's state after init_state "
+                               "claimed it")
+        return self.put(self._fns["init_state"]())
 
     def init_state(self) -> SlotState:
         if self._claimed:
@@ -172,4 +193,5 @@ class GraphGrid:
                             roll=self.roll, multi=self.multi,
                             admit=self.admit, init_state=self.init_state,
                             keep=self.keep, restore=self.restore,
+                            put=self.put, reset=self.reset,
                             close=self.close, graphs=self)

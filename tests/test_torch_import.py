@@ -91,3 +91,37 @@ def test_entry_point_defaults_to_cuda(name):
         pytest.skip("this host has a GPU: the CUDA default is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
+
+
+def test_new_serving_modules_are_covered():
+    """The elastic, lane and trace modules are among those imported above
+    without JAX (the CLI's ``__main__`` included)."""
+    mods = set(_port_modules())
+    assert {"repro_torch.obs.export", "repro_torch.obs.check",
+            "repro_torch.obs.__main__", "repro_torch.core.chords",
+            "repro_torch.serve.executor"} <= mods
+
+
+def test_obs_cli_checks_a_trace_with_jax_unimportable(tmp_path):
+    """``python -m repro_torch.obs check`` on a trace the port wrote, in a
+    process where importing ``jax`` or ``repro`` fails."""
+    path = tmp_path / "trace.json"
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.obs import MetricsRegistry, Tracer, "
+        "write_chrome_trace\n"
+        "from repro_torch.obs.__main__ import main\n"
+        "t = Tracer()\n"
+        "t.span('dispatch/round', t.now(), round_idx=0, gap_s=0.001)\n"
+        "reg = MetricsRegistry()\n"
+        "reg.counter('serve.host_syncs').inc(1)\n"
+        "reg.gauge('serve.rounds_total').set(1.0)\n"
+        f"write_chrome_trace({str(path)!r}, t, metrics=reg)\n"
+        f"sys.exit(main(['check', {str(path)!r}]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "obs check: OK" in proc.stdout

@@ -68,6 +68,21 @@ def test_accept_plan_fills_the_card_at_the_serving_shape():
     assert accept_plan(200, 1024, True).cluster == 1
 
 
+@pytest.mark.parametrize("s,want", [(1, AcceptPlan(8, 128, 32, 4)),
+                                    (2, AcceptPlan(8, 128, 32, 4)),
+                                    (4, AcceptPlan(4, 256, 64, 4))])
+def test_accept_plan_at_every_bucket_of_the_ladder(s, want):
+    """An elastic engine at the launcher defaults serves S = 1, 2, 4 slots
+    of K = 8 cores: 8, 16 and 32 rows of M = 1024. Each plan covers every
+    column once; the smaller grids take the largest cluster (8 blocks a
+    row: 64 and 128 blocks), the full grid 4 (128)."""
+    rows = s * 8
+    p = accept_plan(rows, 1024, True)
+    assert p == want
+    assert rows * p.cluster == min(TARGET_BLOCKS, rows * MAX_CLUSTER)
+    assert (_accept_coverage(1024, p) == 1).all()
+
+
 def _step_coverage(m, p):
     """How many times the step launch touches each column of a row: block
     b, thread t, the ``vec`` columns from (b * threads + t) * vec, if that

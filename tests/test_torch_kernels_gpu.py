@@ -487,6 +487,60 @@ def test_graph_engine_bitwise_eager(cuda, overlap):
     assert stats[True]["host_syncs"] < stats[False]["host_syncs"] or overlap
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    {"min_slots": 1, "max_slots": 4, "resize_hysteresis": 2},
+    {"min_slots": 1, "max_slots": 4, "resize_hysteresis": 2,
+     "overlap": True},
+    {"lane_profile": "default", "mode": "adaptive"},
+    {"lane_profile": "default", "mode": "draft", "overlap": True}],
+    ids=["elastic-sync", "elastic-overlap", "lanes-adaptive",
+         "lanes-draft-overlap"])
+def test_graph_elastic_and_lane_engines_bitwise_eager(cuda, kw):
+    """Elastic resizes (migration into a graph grid's buffers, a bucket's
+    re-entry) and lane grids on the graph programs against the eager ones:
+    the same schedule, so the same shapes every round, and samples, rounds,
+    cores, resizes and skips equal bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import init_wrapper, make_drift
+    from repro_torch.serve import ContinuousEngine, Request
+    from repro_torch.serve.executor import RoundExecutor
+    kw = dict(kw)
+    mode = kw.pop("mode", "exact")
+    n = 12
+    cfg = get_config("chords-dit-xl", reduced=True).replace(use_kernels=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = init_wrapper(cfg, 8, generator=gen, device="cuda")
+    with torch.no_grad():
+        params["out_proj"].normal_(0.0, 0.05, generator=gen)
+    drift, tgrid = make_drift(params, cfg), uniform_tgrid(n, device="cuda")
+    out, stats = {}, {}
+    for graphs in (False, True):
+        ex = RoundExecutor(drift, tgrid, n, use_kernel=True,
+                           eager=not graphs)
+        eng = ContinuousEngine(drift, (1, 16, 8), n, 4, tgrid, num_slots=2,
+                               rtol=0.2, executor=ex, device="cuda", **kw)
+        with torch.no_grad():
+            done = []
+            for i in range(6):
+                eng.submit(Request(rid=i, seed=60 + i, mode=mode))
+                if i == 0:
+                    done += eng.step()  # rid 0 in flight when the grid grows
+            done += eng.run_until_drained()
+        out[graphs], stats[graphs] = dict(done), eng.stats()
+    for rid, a in out[False].items():
+        b = out[True][rid]
+        assert torch.equal(a.sample, b.sample), rid
+        assert (a.rounds_used, a.accepted_core) == (b.rounds_used,
+                                                    b.accepted_core)
+    for key in ("rounds_total", "resizes", "migrations", "lane_skips",
+                "buckets_visited"):
+        assert stats[False][key] == stats[True][key], key
+    assert stats[True]["programs"] == "graph"
+    assert stats[True]["migrations"] > 0 or stats[True]["lane_skips"] > 0
+
+
 def test_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers never fall back: a CPU tensor is an error (the
     dispatchers in ops.py pick the plain versions for CPU tensors)."""

@@ -164,24 +164,27 @@ def test_chords_engine_use_kernel_flip_is_bitwise(models):
 @pytest.mark.parametrize("kw", [{"overlap": True}, {"min_slots": 1},
                                 {"lane_profile": True}])
 def test_unported_engine_features_raise(kw):
-    """Elastic sizes (item 6) and lane profiles (item 7) refuse at
-    construction. The overlap engine and its multi-round device loop
-    (``max_rounds_on_device > 1``, item 8) are ported: there
-    ``step(max_rounds_on_device=2)`` serves (it used to refuse)."""
+    """The engine features that used to refuse at construction now serve:
+    the overlap engine with its multi-round device loop
+    (``step(max_rounds_on_device=2)``), elastic sizes (``min_slots``) and
+    lane profiles, each a request served with the stats that show it."""
+    eng = ContinuousEngine(lambda x, t: -x, (2,), 4, 2, uniform_tgrid(4),
+                           num_slots=2, device="cpu", **kw)
+    eng.submit(Request(rid=0, seed=1, mode="adaptive"))
+    done = []
+    while len(eng.queue) or eng.has_inflight:
+        done += eng.step(max_rounds_on_device=2)
+    assert [rid for rid, _ in done] == [0]
+    st = eng.stats()
     if kw.get("overlap"):
-        eng = ContinuousEngine(lambda x, t: -x, (2,), 4, 2, uniform_tgrid(4),
-                               num_slots=2, device="cpu", **kw)
-        eng.submit(Request(rid=0, seed=1))
-        done = []
-        while len(eng.queue) or eng.has_inflight:
-            done += eng.step(max_rounds_on_device=2)
-        assert [rid for rid, _ in done] == [0]
         assert eng.round_count == 4
-        assert eng.stats()["dispatches"] < eng.round_count  # a 2-round roll
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ContinuousEngine(lambda x, t: -x, (2,), 4, 2, uniform_tgrid(4),
-                         num_slots=2, device="cpu", **kw)
+        assert st["dispatches"] < eng.round_count  # a 2-round roll
+    elif "min_slots" in kw:
+        assert (st["min_slots"], st["max_slots"]) == (1, 2)
+        assert st["buckets_visited"] == [1] and st["retraces"] == 2
+    else:
+        assert st["lane_modes_enabled"] and st["lane_served_nonexact"] == 1
+        assert st["lane_profile"] == ["refine", "draft+skip"]
 
 
 @pytest.mark.parametrize("extra,expect", [
