@@ -1,7 +1,7 @@
 """Ablations of the port's redesigned CUDA kernels on one card: what bounds
 them.
 
-    python3 benchmarks/torch_kernel_ablation.py [ssd,flash,rmsnorm,profiler,step,accept,host]
+    python3 benchmarks/torch_kernel_ablation.py [ssd,flash,rmsnorm,profiler,profiler-serve,step,accept,host]
 
 ``ssd_chunk``: copies of ``src/repro_torch/csrc/ssd_scan.cu`` with one part
 of the kernel cut out by a text substitution (each cut is asserted to
@@ -21,7 +21,9 @@ so the alternatives to the wrappers' own plans are launched through the C
 interface and timed by device time (a profiler window) at the serving
 shapes, beside ``F.rms_norm``; every launch is held against the plain
 version. ``profiler``: how many kernel records a profiler window keeps,
-with and without host gaps at its edges, beside a CUDA graph's count. ``host``: what the host spends per call on each
+with and without host gaps at its edges, beside a CUDA graph's count;
+``profiler-serve`` (run only when named): the same before and after
+``chip_smoke``'s serve phase, with and without its primer. ``host``: what the host spends per call on each
 step of the three wrappers and on ``F.rms_norm`` (wall time of 200 calls,
 the device never the slower side).
 
@@ -302,6 +304,102 @@ def profiler_windows(gen, windows: int = 30, calls: int = 20):
                 flush=True)
 
 
+def _body_losses(prof, skip: int):
+    """The launches of a window's body (its launch records after the first
+    ``skip``, a primer's) whose kernel record the profiler lost, by
+    position in the body (0 = first call), matched by correlation id."""
+    import torch
+    evs = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = set()
+    for e in evs:
+        if e.device_type() == cuda:
+            dev.update((e.correlation_id(), e.linked_correlation_id()))
+    api = sorted((e for e in evs if e.device_type() != cuda
+                  and e.name().startswith(("cudaLaunch", "cuLaunch"))),
+                 key=lambda e: e.start_ns())[skip:]
+    return len(api), [i for i, e in enumerate(api)
+                      if e.correlation_id() not in dev]
+
+
+def profiler_after_serve(windows: int = 6, calls: int = 20):
+    """How many kernel records a ``torch.profiler`` window keeps before and
+    after ``chip_smoke``'s serve phase (``chords-dit-xl`` at full width:
+    the continuous engine, the stream graph, the profiled rounds and
+    one-kernel checks), for the accept wrapper and ``torch.add`` at
+    [32, 1024]. Four windows: ``plain`` (opened, ``GAP_S``, the body,
+    synchronize, ``GAP_S``), ``schedule`` (the body first in a warm-up
+    window, as ``chip_smoke.profiled`` did without a primer), and each of
+    them opening with ``chip_smoke``'s primer launches. A launch of the
+    body without a kernel record is lost, at its position in the body.
+    Exit code 1 if the serve phase failed."""
+    import time
+    import torch
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels.rectify.ops import step_rectify_accept
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lat, prev, dt, ds, fire = cs._rectify_operands(32, 1024, 4, gen)
+    sink = torch.empty_like(lat[0])
+    fns = {"accept": lambda: step_rectify_accept(*lat, prev, dt, ds, fire,
+                                                 use_kernel=True),
+           "torch.add": lambda: torch.add(lat[0], lat[1], out=sink)}
+
+    def window(fn, sched: bool, prime: bool):
+        def body():
+            for _ in range(calls):
+                fn()
+        kw = {"schedule": schedule(wait=0, warmup=1, active=1)} \
+            if sched else {}
+        with profile(activities=acts, **kw) as prof:
+            if sched:
+                body()
+                torch.cuda.synchronize()
+                prof.step()
+            if prime:
+                cs._prime()
+            time.sleep(cs.GAP_S)
+            body()
+            torch.cuda.synchronize()
+            time.sleep(cs.GAP_S)
+        return _body_losses(prof, cs.PRIME_LAUNCHES if prime else 0)
+
+    def survey(state):
+        for name, fn in fns.items():
+            for sched in (False, True):
+                for prime in (False, True):
+                    lost, launches = [], set()
+                    for _ in range(windows):
+                        n, at = window(fn, sched, prime)
+                        launches.add(n)
+                        lost.append(at)
+                    print(json.dumps({
+                        "profiler-serve": state, "fn": name,
+                        "window": ("schedule" if sched else "plain")
+                        + ("+primer" if prime else ""),
+                        "windows": windows, "calls": calls,
+                        "body_launch_records": sorted(launches),
+                        "windows_with_loss": sum(bool(a) for a in lost),
+                        "lost_at_call": sorted({i for a in lost for i in a}),
+                        "lost_per_window": [len(a) for a in lost]}),
+                        flush=True)
+
+    cs.phase_device()
+    cs.phase_build()
+    survey("before serve")
+    cfg, params = cs.build_model("chords-dit-xl")
+    failed = None
+    try:
+        cs.phase_serve(cfg, params, "serve")
+    except AssertionError as e:
+        failed = str(e)
+        print(json.dumps({"profiler-serve": "serve failed",
+                          "error": failed[:800]}), flush=True)
+    survey("after serve")
+    return 1 if failed else 0
+
+
 def host_us(fn, n: int = 200, reps: int = 7) -> float:
     """Host wall time per call, median of ``reps`` runs of ``n`` calls."""
     import time
@@ -563,13 +661,16 @@ def main() -> int:
         rmsnorm_plans(gen)
     if "profiler" in sections:
         profiler_windows(gen)
+    rc = 0
+    if "profiler-serve" in sections:
+        rc = profiler_after_serve()
     if "step" in sections:
         step_plans(gen)
     if "accept" in sections:
         accept_plans(gen)
     if "host" in sections:
         host_path(gen)
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

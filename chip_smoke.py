@@ -94,7 +94,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
               bitwise between graphs and eager programs with their skips
               and rounds, adaptive at rtol 0 bitwise exact, one accept and
               the backbone's per-call kernels a lane round;
-14. hybrid-device-loop — phase 11 on ``zamba2-2.7b``.
+14. hybrid-device-loop — phase 11 on ``zamba2-2.7b``;
+15. stream-loop — the batch stream program (``ChordsEngine``, max_batch
+              4, latent (1, 64, 16), K=8, N=50, rtol 0.05 and 0) as one
+              CUDA graph with a device-side exit against the eager program:
+              samples bitwise, equal rounds and cores, readbacks a call (1
+              against one a round), s a round and device idle share of
+              both, the step kernel's device-counted launches equal to the
+              rounds, and the WHILE loop against replays of its round graph
+              over windows of equal length;
+16. baselines — the paper's ParaDiGMS (window 8) and SRDS (5 segments) on
+              ``chords-dit-xl`` at full width and depth, kernels against
+              the plain drift: rounds, speedup N / rounds, s a round;
+17. train-denoiser — (a) the reduced denoiser of
+              ``examples/torch_train_denoiser.py`` trained on the card
+              (AdamW, checkpoints; the restore bitwise), then CHORDS,
+              ParaDiGMS and SRDS against the sequential solve on it
+              (speedup, latent RMSE); (b) ``chords-dit-xl``'s full widths
+              cut to 4 layers, 10 AdamW steps on one fixed batch in bf16
+              (loss finite and falling, s a step, peak memory); (c) one f32
+              train step of the micro config, card against CPU.
 
 On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
 unless a phase asks for the eager programs. Launch counts are taken by the
@@ -111,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -119,7 +139,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
           "overlap-serve", "device-loop", "elastic-serve", "lane-serve",
-          "ssd", "hybrid-drift", "hybrid-serve", "hybrid-device-loop")
+          "stream-loop", "baselines", "ssd", "hybrid-drift", "hybrid-serve",
+          "hybrid-device-loop", "train-denoiser")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -161,12 +182,32 @@ def median_ms(fn, iters: int = 10, reps: int = 10, warmup: int = 3) -> float:
 # of a window without the gap, none in 90 windows with it).
 GAP_S = 0.005
 
+# launches of a primer kernel (``torch.cuda._sleep``'s spin kernel) that
+# open every recorded window, before its gap. Once the serve phase has run,
+# the profiler keeps no kernel record of a window's first launches,
+# although their launch records are there and the kernels ran: the first 4
+# of 20 in 11 of 12 windows opened without a warm-up window, for the accept
+# wrapper and ``torch.add`` alike, none in 12 opened with the primer
+# (``benchmarks/torch_kernel_ablation.py profiler-serve``); with the
+# warm-up window alone a whole smoke once lost 3 of 20 in each of three
+# windows. The primer's records are dropped by name (:func:`_device_events`).
+PRIME_LAUNCHES = 32
+PRIME_TAG = "spin_kernel"
+
+
+def _prime():
+    import torch
+    for _ in range(PRIME_LAUNCHES):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
 
 def profiled(warm, body, raw: bool = False):
     """``warm()`` in a warm-up window, then ``body()`` in the recorded one,
-    each followed by a synchronize, under ``torch.profiler``; the host waits
-    ``GAP_S`` after the recorded window opens and again before it closes.
-    Returns the device events of ``body`` (``raw``: the profiler itself)."""
+    each followed by a synchronize, under ``torch.profiler``; the recorded
+    window opens with ``PRIME_LAUNCHES`` primer launches, then the host
+    waits ``GAP_S``, and again before the window closes. Returns the device
+    events of ``body`` (``raw``: the profiler itself)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -174,6 +215,7 @@ def profiled(warm, body, raw: bool = False):
         warm()
         torch.cuda.synchronize()
         prof.step()
+        _prime()
         time.sleep(GAP_S)
         body()
         torch.cuda.synchronize()
@@ -575,8 +617,29 @@ def check_flash(gen, records):
     hybrid["bound_ms"], hybrid["bound_by"] = bound_ms(
         2 * 4 * b * s * h * dh, _flash_flops(b, s, s, h, dh, True),
         "bfloat16")
+    # head dim 256 (gemma-7b's attention: 16 heads of 256), causal, both
+    # routes; no served path reaches it yet
+    b, s, h, dh = 2, 1024, 16, 256
+    dh256 = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
+                   .to(dt) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        name = str(dt).split(".")[-1]
+        rec = dict(
+            shape=[b, s, h, dh], causal=True,
+            max_abs_err=max_err(K.flash_attention(q, k, v, causal=True),
+                                attention_ref(q, k, v, True)),
+            ms=median_ms(lambda: K.flash_attention(q, k, v, causal=True)),
+            plain_ms=median_ms(lambda: attention_ref(q, k, v, True)),
+            library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            4 * q.element_size() * b * s * h * dh,
+            _flash_flops(b, s, s, h, dh, True), name)
+        dh256[name] = rec
     emit("kernels/flash_attention", cases=cases, f32_route=f32,
-         hybrid_shape=hybrid)
+         hybrid_shape=hybrid, head_dim_256=dh256)
 
 
 def _ssd_operands(g, h, lc, n, hd, gen):
@@ -848,7 +911,46 @@ def phase_drift(cfg, params, phase="drift"):
     emit(phase, arch=cfg.name, layers=cfg.num_layers, batch=list(x.shape),
          max_abs_err=max_err(out_k, out_p), rel_l2_err=err, kernels_ms=t_k,
          plain_ms=t_p, launches_per_call=counts,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         out_projection=out_projection_cost(cfg, params, x, t))
+
+
+def out_projection_cost(cfg, params, x, t) -> dict:
+    """The cost of computing the drift's f32 out-projection and time MLP in
+    fixed pieces of rows (``wrapper.row_product``) rather than as one
+    product each: the drift call on the full grid (a DiT round's drift)
+    with each, in turns (one, pieces, pieces, one), and the out-projection
+    alone at the grid's shape."""
+    import torch
+    from repro_torch.diffusion import denoise
+    from repro_torch.diffusion import wrapper as W
+    pieces = W.row_product
+
+    def one(x, w, piece_rows):
+        return x @ w
+
+    kcfg = cfg.replace(use_kernels=True)
+    ms = {"one_product": [], "pieces": []}
+    with torch.no_grad():
+        for label in ("one_product", "pieces", "pieces", "one_product"):
+            W.row_product = one if label == "one_product" else pieces
+            try:
+                ms[label].append(median_ms(
+                    lambda: denoise(params, kcfg, x, t), iters=5, reps=1,
+                    warmup=1))
+            finally:
+                W.row_product = pieces
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        hf = torch.randn(x.shape[0], x.shape[1], cfg.d_model, generator=gen,
+                         device="cuda")
+        w = torch.randn(cfg.d_model, x.shape[-1], generator=gen,
+                        device="cuda")
+        alone = {"one_product": median_ms(lambda: one(hf, w, 0)),
+                 "pieces": median_ms(lambda: pieces(hf, w,
+                                                    W.OUT_PIECE_ROWS))}
+    return {"drift_ms": ms, "product_ms": alone,
+            "rows": x.shape[0] * x.shape[1],
+            "piece_rows": W.OUT_PIECE_ROWS, "card": CARD[0]}
 
 
 def phase_hybrid_f32():
@@ -952,6 +1054,9 @@ def phase_serve(cfg, params, phase="serve"):
 
     static = ChordsEngine(drift, (64, 16), n, k, tgrid, max_batch=s,
                           rtol=rtol, use_kernel=True, device="cuda")
+    static.submit(Request(rid=-1, seed=199))
+    with torch.no_grad():
+        static.step()  # builds the stream graph (warm-up and capture)
     for i in range(4):
         static.submit(Request(rid=i, seed=200 + i))
     torch.cuda.synchronize()
@@ -963,12 +1068,15 @@ def phase_serve(cfg, params, phase="serve"):
     wall = time.perf_counter() - t0
     c2 = launch_counts()
     _check_served(done2, 4, n, (64, 16))
-    rounds = static.total_rounds()
-    want = _want(per_call, rounds, accept=False)
+    rounds = static.stats[-1]["rounds"]
+    # the stream graph: the condition kernel at entry and after each round
+    want = _want(per_call, rounds, accept=False, loop=rounds + 1)
     if c2 != want or static.executor.kernel_path != "fused-accept-cuda":
         raise AssertionError(f"ChordsEngine launches {c2} != {want}")
     out["static"] = dict(requests=4, rounds=rounds, wall_s=wall,
                          s_per_round=wall / rounds, launches=c2,
+                         program=type(static.sampler.program).__name__,
+                         host_readbacks=static.sampler.host_readbacks,
                          rounds_used=[o.rounds_used for _, o in done2])
     emit(phase, arch=cfg.name, layers=cfg.num_layers, **out)
     profile_rounds(drift, tgrid, n, k, s, phase + "/profile", per_call)
@@ -1219,10 +1327,12 @@ def _device_events(prof):
     import torch
     # kernels are CUDA-typed events; the engine's "dispatch/round" range and
     # the profiler's own "ProfilerStep#" range also show on the device
-    # timeline and would count every kernel twice
+    # timeline and would count every kernel twice; the window's primer
+    # (:func:`profiled`) is not the body's
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("dispatch/", "ProfilerStep"))]
+            and not e.key.startswith(("dispatch/", "ProfilerStep"))
+            and PRIME_TAG not in e.key]
 
 
 # the kernel behind each wrapper on the bf16 serving paths
@@ -1281,9 +1391,11 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
     each step, which counts the gaps inside a graph as busy), then, at
     ``r_dev`` 1, ``rounds`` steps under ``torch.profiler``
     after one warm-up step (device time by kernel; each backbone kernel's
-    launches per round must equal ``per_call``, one drift call a round;
-    ``accept_path``: the accept call launches one kernel). The idle share
-    is 1 - device time / unprofiled wall time.
+    launches per round must equal ``per_call``, one drift call a round; a
+    window whose records fall short of the kernels' own device counts is
+    opened again, up to ``ONE_KERNEL_WINDOWS``, as in
+    :func:`check_one_kernel`; ``accept_path``: the accept call launches one
+    kernel). The idle share is 1 - device time / unprofiled wall time.
 
     At ``r_dev`` > 1 no window is profiled: a step is up to 8 rounds
     (~16 000 kernels DiT, ~34 000 hybrid), and the profiler's records of
@@ -1297,6 +1409,7 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
     device's loop-round word must equal the engine's rounds); otherwise
     the CUDA-event span of each step."""
     import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.device_loop.kernel import clock
     from repro_torch.serve import Request
     engine = _engine(drift, tgrid, n, k, s, eager, rtol=0.0,
@@ -1342,13 +1455,32 @@ def profile_rounds(drift, tgrid, n, k, s, phase, per_call,
         span = []
 
         def body():
-            span.append(engine.round_count)
+            span[:] = [engine.round_count]
             for _ in range(rounds):
                 engine.step(r_dev)
             span.append(engine.round_count)
 
-        events = profiled(lambda: engine.step(r_dev), body) \
-            if profile else []
+        events = []
+        for _ in range(ONE_KERNEL_WINDOWS if profile else 0):
+            # the kernels' own device counts over the window (warm-up step
+            # and body): a window whose profiler records fall short of them
+            # lost records in the profiler and is opened again
+            reset_launch_counts()
+            w0 = engine.round_count
+            events = profiled(lambda: engine.step(r_dev), body)
+            dev, dev_rounds = launch_counts(), engine.round_count - w0
+            ours = _port_kernels(events, span[1] - span[0])
+            short = {name: ours.get(SERVE_TAGS[name], {}).get(
+                "launches_per_round", 0) for name, c in per_call.items()
+                if c and ours.get(SERVE_TAGS[name], {}).get(
+                    "launches_per_round") != c}
+            if not short or not all(
+                    dev[name] == c * dev_rounds and short.get(name, 0) < c
+                    for name, c in per_call.items() if c):
+                break
+            emit("profiler-loss", what=phase, per_round_recorded=short,
+                 per_round_on_device={name: dev[name] / dev_rounds
+                                      for name in short})
     if engine.stats()["served"] or timed_rounds < 1:
         raise AssertionError(f"{phase}: a lane finished inside the steady "
                              f"window ({engine.round_count} rounds)")
@@ -1679,14 +1811,17 @@ def matmul_row_independence(cfg, params, x, t, parts=(2, 4)) -> dict:
     from torch.overrides import TorchFunctionMode
     from repro_torch.diffusion import denoise
     probed = {torch.einsum: "einsum", torch.matmul: "matmul",
-              torch.Tensor.__matmul__: "matmul"}
+              torch.Tensor.__matmul__: "matmul",
+              torch.Tensor.matmul: "matmul", torch.mm: "mm"}
+    from repro_torch.diffusion import wrapper as W
     found = {}
+    inside = [False]  # in row_product: probed as one function below
 
     class Probe(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
-            if func not in probed:
+            if func not in probed or inside[0]:
                 return out
             idx = [i for i, a in enumerate(args)
                    if isinstance(a, torch.Tensor)]
@@ -1716,8 +1851,37 @@ def matmul_row_independence(cfg, params, x, t, parts=(2, 4)) -> dict:
                                  max_err(alone, out[:alone.shape[0]]))
             return out
 
-    with torch.no_grad(), Probe():
-        denoise(params, cfg.replace(use_kernels=True), x, t)
+    row_product = W.row_product
+
+    def probe_row_product(x, w, piece_rows):
+        """The drift's f32 products in fixed pieces of rows (the
+        out-projection, the time MLP) as the function the drift calls: the
+        first 1/p of the rows alone against the same rows of the whole
+        call."""
+        inside[0] = True
+        try:
+            out = row_product(x, w, piece_rows)
+            for p in parts:
+                if x.ndim < 2 or x.shape[0] % p:
+                    continue
+                alone = row_product(x[:x.shape[0] // p], w, piece_rows)
+                key = (f"row_product {list(x.shape)}x{list(w.shape)} "
+                       f"pieces of {piece_rows} {x.dtype}, 1/{p}")
+                found[key] = max(found.get(key, 0.0),
+                                 max_err(alone, out[:alone.shape[0]]))
+        finally:
+            inside[0] = False
+        return out
+
+    W.row_product = probe_row_product
+    try:
+        with torch.no_grad(), Probe():
+            denoise(params, cfg.replace(use_kernels=True), x, t)
+    finally:
+        W.row_product = row_product
+    if sum(key.startswith("row_product") for key in found) < 3 * len(parts):
+        raise AssertionError(f"row probe: the pieced products were not all "
+                             f"probed: {sorted(found)}")
     return found
 
 
@@ -1727,9 +1891,12 @@ def row_independence(cfg, params, k: int = 8) -> dict:
     slot, S=1) against inside a grid of four slots (S=4): the rmsnorm and
     flash kernels at the served shapes, the whole drift, and every matrix
     product of the drift in context (:func:`matmul_row_independence`:
-    those that differ are listed). The port's kernels are row independent
-    by construction; a GEMM library may pick another algorithm or split
-    for another row count. Returns each op's max abs difference."""
+    those that differ are listed; the f32 products the drift computes in
+    fixed pieces of rows, the out-projection and the time MLP, as the
+    function it calls, ``wrapper.row_product``), on a grid of four slots
+    and of two. The port's kernels are row independent by construction; a
+    GEMM library may pick another algorithm or split for another row count,
+    which the fixed pieces undo. Returns each op's max abs difference."""
     import torch
     from repro_torch.diffusion import denoise
     from repro_torch.kernels.flash_attention.ops import attend
@@ -1752,9 +1919,14 @@ def row_independence(cfg, params, k: int = 8) -> dict:
         out["flash_kernel"] = max_err(
             attend(q[:k], q[:k], q[:k], causal=False, use_kernel=True),
             attend(q, q, q, causal=False, use_kernel=True)[:k])
-        out["drift"] = max_err(denoise(params, kcfg, x[:k], t[:k]),
-                               denoise(params, kcfg, x, t)[:k])
+        alone = denoise(params, kcfg, x[:k], t[:k])
+        out["drift"] = max_err(alone, denoise(params, kcfg, x, t)[:k])
+        out["drift_2_slots"] = max_err(
+            alone, denoise(params, kcfg, x[:2 * k], t[:2 * k])[:k])
     products = matmul_row_independence(cfg, params, x, t)
+    products.update({f"{key} (2-slot grid)": d for key, d in
+                     matmul_row_independence(cfg, params, x[:2 * k],
+                                             t[:2 * k], parts=(2,)).items()})
     out["products_probed"] = len(products)
     out["products_not_row_independent"] = {
         key: d for key, d in products.items() if d != 0.0}
@@ -1925,7 +2097,7 @@ def phase_elastic_serve(cfg, params, phase="elastic-serve"):
 
     rows = row_independence(cfg, params, k)
     cross_bitwise = all(rows[op] == 0.0 for op in (
-        "rmsnorm_kernel", "flash_kernel", "drift")) \
+        "rmsnorm_kernel", "flash_kernel", "drift", "drift_2_slots")) \
         and not rows["products_not_row_independent"]
     emit(phase + "/rows", card=CARD[0], max_abs_diff_alone_vs_in_grid=rows,
          row_independent=cross_bitwise)
@@ -2162,11 +2334,16 @@ def _accept_path_kernels(rows, m, p):
 def profile_static(drift, tgrid, n, k, s):
     """One ``ChordsEngine`` batch (s requests) under ``torch.profiler``:
     the device time per launch of its rectify kernel, which the
-    ``ContinuousEngine`` profile never runs."""
+    ``ContinuousEngine`` profile never runs. The eager stream program: the
+    profiler drops the records of the loop graph's kernels."""
     import torch
     from repro_torch.serve import ChordsEngine, Request
+    from repro_torch.serve.executor import RoundExecutor
     static = ChordsEngine(drift, (64, 16), n, k, tgrid, max_batch=s,
-                          rtol=0.05, use_kernel=True, device="cuda")
+                          rtol=0.05, device="cuda",
+                          executor=RoundExecutor(drift, tgrid, n,
+                                                 use_kernel=True,
+                                                 eager=True))
     for i in range(s):
         static.submit(Request(rid=i, seed=400 + i))
     with torch.no_grad():
@@ -2209,6 +2386,455 @@ def _check_served(done, count, n, shape):
                                  f"{tuple(o.sample.shape)}")
 
 
+
+# -- the sample-and-train slice: stream loop, baselines, training -------------
+
+def _static_run(drift, tgrid, n, k, rtol, eager, seeds, profile=False):
+    """``ChordsEngine`` (max_batch 4, latent (1, 64, 16)) on the graph or
+    the eager stream program: a first batch builds the program (the graph's
+    capture), then ``seeds`` are served with the kernels' device counts,
+    the loop clock (graph) and the host readbacks taken over them.
+    Returns (done, record, engine)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.device_loop.kernel import clock
+    from repro_torch.serve import ChordsEngine, Request
+    from repro_torch.serve.executor import RoundExecutor
+    ex = RoundExecutor(drift, tgrid, n, use_kernel=True, eager=eager)
+    eng = ChordsEngine(drift, (1, 64, 16), n, k, tgrid, max_batch=4,
+                       rtol=rtol, executor=ex, device="cuda")
+    eng.submit(Request(rid=-1, seed=999))
+    with torch.no_grad():
+        eng.step()
+    prog = eng.sampler.program
+    rb0, rr0, calls0 = eng.sampler.host_readbacks, prog.rounds_run, \
+        len(eng.stats)
+    for i, seed in enumerate(seeds):
+        eng.submit(Request(rid=i, seed=seed))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ns0 = clock()[1]
+    t0 = time.perf_counter()
+    done = []
+    with torch.no_grad():
+        while eng.queue:
+            done += eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop_ms = (clock()[1] - ns0) / 1e6
+    counts = launch_counts()
+    rounds = prog.rounds_run - rr0
+    calls = len(eng.stats) - calls0
+    readbacks = eng.sampler.host_readbacks - rb0
+    rec = dict(program=type(prog).__name__, calls=calls, rounds=rounds,
+               wall_s=wall, s_per_round=wall / rounds,
+               readbacks=readbacks, readbacks_per_call=readbacks / calls,
+               launches=counts,
+               build_s=getattr(prog, "build_s", None))
+    if not eager:
+        # the loop clock: device time inside the loop graphs (gaps between
+        # a round's kernels counted busy)
+        rec["device_ms_per_round"] = loop_ms / rounds
+        rec["device_idle_share"] = 1.0 - loop_ms / 1e3 / wall
+        rec["device_ms_from"] = "loop clock"
+    elif profile:
+        # the same eager program with a budget of 3 rounds, profiled (a
+        # window of a whole batch, 25-50 rounds of ~2000 kernels each,
+        # was followed by windows that lost most of their records)
+        from repro_torch.serve.executor import EagerStream
+        short = EagerStream(prog._fns, 3, prog.device)
+        gen = torch.Generator(device="cuda").manual_seed(998)
+        x0 = torch.randn((4, 1, 64, 16), generator=gen, device="cuda")
+        live = torch.ones(4, dtype=torch.bool, device="cuda")
+        box = {}
+
+        def body():
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                short(x0, live)
+            torch.cuda.synchronize()
+            box["wall"] = time.perf_counter() - t1
+
+        with torch.no_grad():
+            events = profiled(lambda: short(x0, live), body)
+        dev_s = sum(e.self_device_time_total for e in events) / 1e6
+        rec["device_ms_per_round"] = dev_s * 1e3 / 3
+        rec["device_idle_share"] = 1.0 - dev_s / box["wall"]
+        rec["profiled_s_per_round"] = box["wall"] / 3
+        rec["device_ms_from"] = "profiler, 3 rounds"
+    return dict(done), rec, eng
+
+
+def _while_vs_replays(prog, windows: int = 2) -> dict:
+    """The stream graph's WHILE loop against its round graph replayed by the
+    host, over windows of equal length: one launch of the loop program
+    (rtol 0: N rounds, no early exit) against the captured init, N replays
+    of the round graph and the captured finish, in turns (A B B A, twice),
+    CUDA events around each window; the two windows' outputs bitwise."""
+    import torch
+    from repro_torch.kernels.device_loop import kernel as loop_kernel
+    (sg,) = prog._shapes.values()
+    n = prog.n
+
+    def while_window():
+        loop_kernel.graph_launch(sg._loop, sg.device.index or 0)
+
+    def replay_window():
+        sg._graphs[0].replay()
+        for _ in range(n):
+            sg._graphs[1].replay()
+        sg._graphs[2].replay()
+
+    ms = {"while": [], "replays": []}
+    outs = {}
+    for _ in range(windows):
+        for label in ("while", "replays", "replays", "while"):
+            fn = while_window if label == "while" else replay_window
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms[label].append(a.elapsed_time(b) / n)
+            outs[label] = (sg.result.clone(), sg.rc.clone())
+    if not (torch.equal(outs["while"][0], outs["replays"][0])
+            and torch.equal(outs["while"][1], outs["replays"][1])):
+        raise AssertionError("stream loop: WHILE and replays disagree")
+    return {"window_rounds": n, "ms_per_round": ms,
+            "median_while": sorted(ms["while"])[len(ms["while"]) // 2],
+            "median_replays": sorted(ms["replays"])[len(ms["replays"])
+                                                    // 2]}
+
+
+def phase_stream_loop(cfg, params, phase="stream-loop"):
+    """The batch stream program on ``chords-dit-xl`` at full width and
+    depth through ``ChordsEngine`` (K=8, N=50, max_batch 4, latent
+    (1, 64, 16)): the graph (one launch and one readback a batch) against
+    the eager program at rtol 0.05 (8 requests, two batches) and 0 (4
+    requests, 50 rounds): samples bitwise, equal rounds and cores; the step
+    kernel's device-counted launches equal the rounds the loop ran; s a
+    round and device idle share; then the WHILE loop against replays of
+    its round graph."""
+    import torch
+    from repro_torch.core import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    n, k = 50, 8
+    tgrid = uniform_tgrid(n, device="cuda")
+    drift = make_drift(params, cfg.replace(use_kernels=True))
+    per_call = per_call_launches(cfg)
+    total = {}
+    recs = {}
+    for rtol, seeds in ((0.05, [300 + i for i in range(8)]),
+                        (0.0, [400 + i for i in range(4)])):
+        runs = {}
+        for label, eager in (("graph", False), ("eager", True)):
+            done, rec, eng = _static_run(drift, tgrid, n, k, rtol, eager,
+                                         seeds, profile=True)
+            _check_served(list(done.items()), len(seeds), n, (1, 64, 16))
+            want = _want(per_call, rec["rounds"], accept=False,
+                         loop=rec["rounds"] + rec["calls"])
+            if rec["launches"] != want:
+                raise AssertionError(f"{phase} {label} rtol {rtol}: "
+                                     f"launches {rec['launches']} != {want}")
+            if label == "graph":
+                total = {name: total.get(name, 0) + c
+                         for name, c in rec["launches"].items()}
+                if rec["readbacks_per_call"] != 1:
+                    raise AssertionError(f"{phase}: {rec['readbacks']} "
+                                         f"readbacks in {rec['calls']} calls")
+                if rtol == 0.0:
+                    rec["while_vs_replays"] = _while_vs_replays(
+                        eng.sampler.program)
+            runs[label] = done
+            recs[f"{label}-rtol{rtol}"] = rec
+            emit(phase + "/run", card=CARD[0], run=label, rtol=rtol, **rec)
+            del eng
+        for rid, a in runs["eager"].items():
+            b = runs["graph"][rid]
+            if not (torch.equal(a.sample, b.sample)
+                    and (a.rounds_used, a.accepted_core)
+                    == (b.rounds_used, b.accepted_core)):
+                raise AssertionError(
+                    f"{phase} rtol {rtol}: request {rid} graph vs eager "
+                    f"(max err {max_err(a.sample, b.sample)}, rounds "
+                    f"{b.rounds_used}/{a.rounds_used})")
+        torch.cuda.empty_cache()
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, card=CARD[0],
+         graph_vs_eager_bitwise=True,
+         summary={key: {f: r.get(f) for f in (
+             "rounds", "calls", "readbacks_per_call", "s_per_round",
+             "device_ms_per_round", "device_idle_share")}
+             for key, r in recs.items()},
+         while_vs_replays=recs["graph-rtol0.0"]["while_vs_replays"])
+    return total
+
+
+def phase_baselines(cfg, params, phase="baselines"):
+    """The paper's baselines on ``chords-dit-xl`` at full width and depth
+    (one latent (1, 64, 16), N=50): ParaDiGMS (window 8, tol 2e-3) and SRDS
+    (5 segments, tol 1e-3) with the kernels and with the plain drift:
+    outputs within the bf16 backbone tolerance of each other, both finite;
+    rounds, speedup N / rounds, s a round, and each against the sequential
+    solve (latent RMSE)."""
+    import torch
+    from repro_torch.core import (paradigms_sample, sequential_sample,
+                                  srds_sample, uniform_tgrid)
+    from repro_torch.diffusion import make_drift
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    n = 50
+    tgrid = uniform_tgrid(n, device="cuda")
+    drift_k = make_drift(params, cfg.replace(use_kernels=True))
+    drift_p = make_drift(params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x0 = torch.randn(1, 64, 16, generator=gen, device="cuda")
+    with torch.no_grad():
+        seq = sequential_sample(drift_k, x0, tgrid, device="cuda")
+    torch.cuda.synchronize()
+    total, out = {}, {}
+    for name, fn in (
+            ("paradigms", lambda d: paradigms_sample(d, x0, tgrid, window=8,
+                                                     device="cuda")),
+            ("srds", lambda d: srds_sample(d, x0, tgrid, num_segments=5,
+                                           device="cuda"))):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res_k = fn(drift_k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        with torch.no_grad():
+            res_p = fn(drift_p)
+        for res in (res_k, res_p):
+            if tuple(res.output.shape) != (1, 64, 16) \
+                    or not bool(torch.isfinite(res.output).all()):
+                raise AssertionError(f"{phase} {name}: bad output")
+        torch.testing.assert_close(res_k.output, res_p.output,
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+        total = {key: total.get(key, 0) + c for key, c in counts.items()}
+        out[name] = dict(
+            rounds=res_k.rounds, rounds_plain=res_p.rounds,
+            iters=res_k.iters, speedup=res_k.speedup, wall_s=wall,
+            s_per_round=wall / res_k.rounds, launches=counts,
+            max_abs_err_vs_plain=max_err(res_k.output, res_p.output),
+            rmse_vs_sequential=float(torch.sqrt(
+                ((res_k.output - seq) ** 2).mean())))
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, card=CARD[0],
+         seq_rms=float(torch.sqrt((seq ** 2).mean())), **out)
+    return total
+
+
+def _load_example(name):
+    import importlib.util
+    path = os.path.join(ROOT, "examples", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _train_full_width(steps: int = 10) -> dict:
+    """``chords-dit-xl``'s full widths cut to 4 layers (bf16 compute and
+    storage, f32 master weights): ``steps`` AdamW steps on one fixed batch
+    (8 latents of (64, 16) from a Gaussian mixture, fixed t and noise). The
+    loss must be finite and fall."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import GaussianMixture
+    from repro_torch.diffusion import diffusion_loss_from, init_wrapper
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.utils.tree import (tree_flatten, tree_map,
+                                        tree_unflatten)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("chords-dit-xl").replace(num_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    params = tree_map(lambda p: p.detach().requires_grad_(),
+                      init_wrapper(cfg, 16, generator=gen, device="cuda"))
+    leaves, treedef = tree_flatten(params)
+    gm = GaussianMixture.random(gen, num_modes=4, dim=16, device="cuda")
+    x1 = gm.sample_data(gen, 8 * 64).reshape(8, 64, 16)
+    t = torch.rand((8, 1, 1), generator=gen, device="cuda")
+    eps = torch.randn(x1.shape, generator=gen, device="cuda")
+    opt = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=steps,
+                      weight_decay=0.0)
+    state = init_state(params, opt)
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = diffusion_loss_from(params, cfg, x1, t, eps)
+        grads = tree_unflatten(treedef, list(torch.autograd.grad(
+            loss, tree_flatten(params)[0], allow_unused=True,
+            materialize_grads=True)))
+        with torch.no_grad():
+            params, state, _ = apply_updates(params, grads, state, opt)
+        params = tree_map(lambda p: p.detach().requires_grad_(), params)
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"full-width training: losses {losses}")
+    return dict(d_model=cfg.d_model, heads=cfg.num_heads,
+                head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff,
+                layers=cfg.num_layers, cut="depth 36 -> 4 layers",
+                params_m=sum(x.numel() for x in leaves) / 1e6,
+                batch=[8, 64, 16], steps=steps, losses=losses,
+                s_per_step=step_s, s_per_step_median=sorted(step_s)[
+                    len(step_s) // 2],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _train_step_card_vs_cpu() -> dict:
+    """One f32 train step of the micro config (4 layers, d_model 128) on
+    the card and on the CPU from the same parameters, batch, t and noise:
+    loss within 1e-5 relative and every gradient within 1e-5 relative in
+    the L2 norm (f32 sums taken in other orders). The updated parameters
+    differ by at most 2 lr an element: AdamW's first step moves an element
+    by lr * g / (|g| + eps), about lr * sign(g), so an element whose
+    gradient is at rounding level may move the other way on the other
+    device (their relative L2 gap is printed)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import diffusion_loss_from, init_wrapper
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
+                                        tree_unflatten)
+    cfg = get_config("chords-dit-xl", reduced=True)
+    gen = torch.Generator().manual_seed(41)
+    base = init_wrapper(cfg, 8, generator=gen, device="cpu")
+    with torch.no_grad():
+        base["out_proj"].normal_(0.0, 0.05, generator=gen)
+    x1 = torch.randn(4, 8, 8, generator=gen)
+    t = torch.rand(4, 1, 1, generator=gen)
+    eps = torch.randn(4, 8, 8, generator=gen)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, weight_decay=0.1)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda p: p.detach().to(dev).requires_grad_(),
+                          base)
+        leaves, treedef = tree_flatten(params)
+        loss = diffusion_loss_from(params, cfg, x1.to(dev), t.to(dev),
+                                   eps.to(dev))
+        grads = tree_unflatten(treedef, list(torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)))
+        with torch.no_grad():
+            new, _, _ = apply_updates(params, grads,
+                                      init_state(params, opt), opt)
+        res[dev] = (float(loss.detach()),
+                    [g.detach().cpu().double() for g in tree_leaves(grads)],
+                    [p.detach().cpu().double() for p in tree_leaves(new)])
+    (lc, gc, pc), (lg, gg, pg) = res["cpu"], res["cuda"]
+
+    def worst(a, b):
+        return max(float((x - y).norm() / max(float(y.norm()), 1e-30))
+                   for x, y in zip(a, b))
+    moved = [(x - y).abs() for x, y in zip(pg, pc)]
+    out = dict(loss_cpu=lc, loss_card=lg, loss_rel=abs(lg - lc) / abs(lc),
+               grad_rel_l2=worst(gg, gc), param_rel_l2=worst(pg, pc),
+               param_max_abs=max(float(m.max()) for m in moved),
+               params_apart=sum(int((m > 1e-3 * opt.lr).sum())
+                                for m in moved),
+               params=sum(m.numel() for m in moved), tol=1e-5,
+               param_tol_abs=2 * opt.lr)
+    if not (max(out["loss_rel"], out["grad_rel_l2"]) <= 1e-5
+            and out["param_max_abs"] <= 2 * opt.lr):
+        raise AssertionError(f"train step card vs CPU: {out}")
+    return out
+
+
+def phase_train_denoiser(phase="train-denoiser"):
+    """(a) The example's reduced denoiser (``chords-dit-micro``, latent
+    (8, 8)) trained on the card for 300 AdamW steps, checkpointed every 100
+    (the newest restore bitwise), then sampled with the kernels: CHORDS at
+    K=8, ParaDiGMS (window 8) and SRDS (5 segments) against the sequential
+    solve at N=50 (speedup, latent RMSE); (b) full widths, 4 layers; (c) a
+    train step card vs CPU. Returns the kernels' launches of (a)'s
+    sampling."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import (paradigms_sample, sequential_sample,
+                                  srds_sample, uniform_tgrid)
+    from repro_torch.diffusion import make_drift
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.utils.tree import tree_leaves
+    ex = _load_example("torch_train_denoiser.py")
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ex.parse_args(["--steps", "300", "--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, cfg, _, losses, ckpt = ex.train(
+            args, dev, log=lambda *a: None)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        steps = sorted(os.listdir(tmp))
+        restored, step = ckpt.restore_latest({"params": params,
+                                              "opt": state})
+        want = tree_leaves({"params": params, "opt": state})
+        got = tree_leaves(restored)
+        if step != args.steps or len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{phase}: restore of step {step} is not "
+                                 f"bitwise the trained state")
+    if not all(math.isfinite(v) for v in losses) \
+            or not sum(losses[-20:]) < sum(losses[:20]):
+        raise AssertionError(f"{phase}: losses {losses[:3]} .. "
+                             f"{losses[-3:]}")
+    kcfg = cfg.replace(use_kernels=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    speedup, rmse, rel = ex.sample(params, kcfg, args, dev,
+                                   log=lambda *a: None)
+    torch.cuda.synchronize()
+    chords_s = time.perf_counter() - t0
+    n = args.sample_steps
+    tg = uniform_tgrid(n, 0.98, device="cuda")
+    x0 = torch.randn((4, args.seq, args.latent_dim),
+                     generator=torch.Generator(device="cuda").manual_seed(3),
+                     device="cuda")
+    quality = {"chords": dict(cores=args.cores, speedup=speedup,
+                              rmse=rmse, rel_rmse=rel, wall_s=chords_s)}
+    with torch.no_grad():
+        drift = make_drift(params, kcfg)
+        seq = sequential_sample(drift, x0, tg, device="cuda")
+        scale = float(torch.sqrt((seq ** 2).mean()))
+        for name, fn in (
+                ("paradigms", lambda: paradigms_sample(drift, x0, tg,
+                                                       window=8,
+                                                       device="cuda")),
+                ("srds", lambda: srds_sample(drift, x0, tg, num_segments=5,
+                                             device="cuda"))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            e = float(torch.sqrt(((res.output - seq) ** 2).mean()))
+            quality[name] = dict(speedup=res.speedup, rounds=res.rounds,
+                                 iters=res.iters, rmse=e, rel_rmse=e / scale,
+                                 wall_s=time.perf_counter() - t0)
+    counts = launch_counts()
+    for name, q in quality.items():
+        if not (math.isfinite(q["rmse"]) and q["speedup"] > 0):
+            raise AssertionError(f"{phase} {name}: {q}")
+    emit(phase, card=CARD[0], arch=cfg.name, latent=[args.seq,
+                                                    args.latent_dim],
+         steps=args.steps, train_s=train_s, s_per_step=train_s / args.steps,
+         loss_first=losses[0], loss_last=losses[-1],
+         loss_mean_first20=sum(losses[:20]) / 20,
+         loss_mean_last20=sum(losses[-20:]) / 20, checkpoints=steps,
+         restore_bitwise=True, sample_steps=n, quality=quality,
+         launches=counts)
+    emit(phase + "/full-width", card=CARD[0], **_train_full_width())
+    emit(phase + "/card-vs-cpu", card=CARD[0], **_train_step_card_vs_cpu())
+    return counts
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {
@@ -2236,7 +2862,11 @@ SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                  "hybrid-serve": _CONTINUOUS | {"fused_step_rectify",
                                                 "ssd_chunk"},
                  "hybrid-device-loop": _CONTINUOUS | {"device_loop",
-                                                      "ssd_chunk"}}
+                                                      "ssd_chunk"},
+                 "stream-loop": {"fused_step_rectify", "rmsnorm",
+                                 "flash_attention", "device_loop"},
+                 "baselines": {"rmsnorm", "flash_attention"},
+                 "train-denoiser": {"rmsnorm", "flash_attention"}}
 
 
 def main(argv=None) -> int:
@@ -2270,7 +2900,11 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     launches = {name: 0 for name in SOURCES}
-    # per arch: its drift phase, then its serving paths in order
+    # per arch: its drift phase, then its serving paths in order. The
+    # DiT's stream-loop and baselines come after the hybrid (the model
+    # built again): placed before it, the hybrid's one-kernel profiler
+    # check, later in the process, lost most of its records (two whole
+    # smokes), which the phases alone in a short process did not show
     for arch, drift_phase, paths in (
             ("chords-dit-xl", "drift", (("serve", phase_serve),
                                         ("overlap-serve",
@@ -2281,7 +2915,9 @@ def main(argv=None) -> int:
                                         ("lane-serve", phase_lane_serve))),
             ("zamba2-2.7b", "hybrid-drift", (("hybrid-serve", phase_serve),
                                              ("hybrid-device-loop",
-                                              phase_device_loop)))):
+                                              phase_device_loop))),
+            ("chords-dit-xl", None, (("stream-loop", phase_stream_loop),
+                                     ("baselines", phase_baselines)))):
         if arch == "zamba2-2.7b" and "ssd" in phases:
             phase_ssd()
         if not ({drift_phase} | {p for p, _ in paths}) & set(phases):
@@ -2304,6 +2940,14 @@ def main(argv=None) -> int:
         if drift_phase == "hybrid-drift" and drift_phase in phases:
             phase_hybrid_f32()
             torch.cuda.empty_cache()
+    if "train-denoiser" in phases:
+        counts = phase_train_denoiser()
+        missing = [n for n in SERVE_KERNELS["train-denoiser"]
+                   if not counts[n]]
+        if missing:
+            raise AssertionError(f"kernels never launched on the "
+                                 f"train-denoiser path: {missing}")
+        launches = {n: launches[n] + counts[n] for n in launches}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         rec = records.get(name, {})

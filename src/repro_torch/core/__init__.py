@@ -1,7 +1,10 @@
 """CHORDS core (port of ``repro.core``): scheduler index math, init
-sequences, the PF-ODE helpers, rectification, the Euler solver and
-Algorithm 1 with its heterogeneous lanes."""
+sequences, the PF-ODE helpers, rectification, the Euler and Heun solvers,
+Algorithm 1 with its heterogeneous lanes, the paper's baselines
+(ParaDiGMS, SRDS) and the reward surrogate."""
 from repro_torch.core import scheduler  # noqa: F401
+from repro_torch.core.baselines import (BaselineResult,  # noqa: F401
+                                        paradigms_sample, srds_sample)
 from repro_torch.core.chords import (ChordsCarry, ChordsResult,  # noqa: F401
                                      LaneSpec, LaneState, accept_from_sums,
                                      accept_test, bmask, chords_init_carry,
@@ -17,4 +20,6 @@ from repro_torch.core.ode import (GaussianMixture, exponential_drift,  # noqa: F
 from repro_torch.core.rectify import (coarse_smooth,  # noqa: F401
                                       downsample_latent, rectified_step,
                                       rectify_delta, upsample_latent)
-from repro_torch.core.solvers import draft_drift, sequential_sample  # noqa: F401
+from repro_torch.core.reward import reward, speedup_cont  # noqa: F401
+from repro_torch.core.solvers import (draft_drift, nfe_per_step,  # noqa: F401
+                                      sequential_sample)

@@ -352,14 +352,17 @@ def make_round_body(drift: DriftFn, tgrid, i_arr, n: int, k: int,
                     collect_trace: bool = False, use_kernel: bool = False):
     """One lockstep round of Algorithm 1 over a ``[K, ...]`` grid (shared by
     the batch sampler and the streaming engine). carry = ChordsCarry with
-    ``[K, ...]`` leaves; ``r`` is the scalar round."""
+    ``[K, ...]`` leaves; ``r`` is the round: a Python int or a 0-d int32
+    tensor on the device (the stream program's counter, which never comes
+    back to the host)."""
     step = _make_round_step(drift, tgrid, n, k, use_kernel=use_kernel)
     i_g = torch.as_tensor(i_arr, dtype=torch.int32,
                           device=tgrid.device)[None]
 
     def round_body(carry: ChordsCarry, r):
         grid = ChordsCarry(*(t[None] for t in carry))
-        r_g = torch.as_tensor([r], dtype=torch.int32, device=tgrid.device)
+        r_g = torch.as_tensor(r, dtype=torch.int32,
+                              device=tgrid.device).reshape(1)
         new, emitted = step(grid, i_g, r_g)
         new_carry = ChordsCarry(*(t[0] for t in new))
         trace = new_carry.x if collect_trace else emitted[0]

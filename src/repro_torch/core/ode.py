@@ -17,6 +17,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 # drift: (x [R, ...], t [R]) -> dx/dt [R, ...]
 DriftFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -34,6 +36,29 @@ class GaussianMixture:
     mus: torch.Tensor  # [M, D]
     sigmas: torch.Tensor  # [M]
     weights: torch.Tensor  # [M]
+
+    @staticmethod
+    def random(generator: torch.Generator, num_modes=8, dim=16, spread=4.0,
+               sigma=0.25, device="cuda") -> "GaussianMixture":
+        """Random modes ~ N(0, spread^2), one sigma, Dirichlet(1) weights
+        (normalized Exp(1) draws), from ``generator`` on ``device``. Not the
+        JAX package's draws: parity tests build the mixture from its
+        arrays."""
+        device = resolve_device(device)
+        mus = spread * torch.randn((num_modes, dim), generator=generator,
+                                   device=device)
+        sigmas = sigma * torch.ones((num_modes,), device=device)
+        e = -torch.log(torch.rand((num_modes,), generator=generator,
+                                  device=device).clamp_min(1e-30))
+        return GaussianMixture(mus, sigmas, e / e.sum())
+
+    def sample_data(self, generator: torch.Generator, n: int):
+        """n draws of the data distribution: [n, D]."""
+        comp = torch.multinomial(self.weights, n, replacement=True,
+                                 generator=generator)
+        eps = torch.randn((n, self.mus.shape[1]), generator=generator,
+                          device=self.mus.device)
+        return self.mus[comp] + self.sigmas[comp][:, None] * eps
 
     def to(self, device) -> "GaussianMixture":
         return GaussianMixture(self.mus.to(device), self.sigmas.to(device),

@@ -1,5 +1,9 @@
-"""Single-core ODE solver s_theta (paper Eq. 6) — port of
-``repro.core.solvers`` (Euler and the draft drift; Heun comes later)."""
+"""Single-core ODE solvers s_theta (paper Eq. 6) — port of
+``repro.core.solvers``.
+
+``euler`` on the rectified-flow parameterization is exactly the DDIM update
+in the paper's time variable, so it is the default; ``heun`` (2 NFE a
+step) is the second-order solver of the convergence-order tests."""
 from __future__ import annotations
 
 import torch
@@ -15,13 +19,11 @@ def euler_delta(f_val, t, t_next):
 
 def sequential_sample(drift: DriftFn, x0, tgrid, method: str = "euler",
                       collect: bool = False, device="cuda"):
-    """Golden sequential Euler solve over the full grid. Returns x_1 (or
-    ``(x_1, trajectory [N, ...])``). The drift sees one row (``[1, ...]``
-    with ``t`` of shape ``[1]``), the port's drift contract."""
-    if method != "euler":
-        raise NotImplementedError(
-            f"method={method!r}: only Euler is ported (Heun comes with the "
-            f"paper baselines, ROADMAP.md queue 1 item 10)")
+    """Golden sequential solve over the full grid (``euler`` or ``heun``).
+    Returns x_1 (or ``(x_1, trajectory [N, ...])``). The drift sees one row
+    (``[1, ...]`` with ``t`` of shape ``[1]``), the port's drift contract."""
+    if method not in ("euler", "heun"):
+        raise KeyError(method)
     dev = resolve_device(device)
     x = torch.as_tensor(x0).to(dev)[None]
     tgrid = torch.as_tensor(tgrid).to(dev)
@@ -29,10 +31,20 @@ def sequential_sample(drift: DriftFn, x0, tgrid, method: str = "euler",
     traj = []
     for i in range(n):
         t, tn = tgrid[i:i + 1], tgrid[i + 1:i + 2]
-        x = x + (tn - t).reshape((1,) * x.ndim) * drift(x, t)
+        h = (tn - t).reshape((1,) * x.ndim)
+        f1 = drift(x, t)
+        if method == "euler":
+            x = x + h * f1
+        else:
+            f2 = drift(x + h * f1, tn)
+            x = x + h * 0.5 * (f1 + f2)
         if collect:
             traj.append(x[0])
     return (x[0], torch.stack(traj)) if collect else x[0]
+
+
+def nfe_per_step(method: str) -> int:
+    return {"euler": 1, "heun": 2}[method]
 
 
 def draft_drift(drift: DriftFn, coarse_factor: int) -> DriftFn:

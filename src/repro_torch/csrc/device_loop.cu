@@ -15,6 +15,14 @@
 //   entry kernel -> WHILE(handle) { child graph: the captured round
 //                                   -> step kernel }
 //
+// The batch stream program (StreamingSampler's early-exit loop, the JAX
+// package's `_build_stream_fn` while_loop) is the same loop with a captured
+// prologue and epilogue, and its exit `~all(accepted) & r <= n` is this
+// condition with live = ~accepted, budget N and done = done0 = 0:
+//
+//   prologue (init) -> entry kernel -> WHILE { round -> step kernel }
+//     -> epilogue (the fall-through step and the outputs)
+//
 // The entry kernel sets i = 0, snapshots done0 and sets the handle to the
 // condition at i = 0; the step kernel, after each round, counts the round and
 // sets the handle to the condition of the new state. The host writes the
@@ -111,13 +119,16 @@ int device_loop_step(const void* live, const void* done, void* done0,
   return (int)cudaGetLastError();
 }
 
-// Build and instantiate the multi loop program around `round_graph` (a
-// captured cudaGraph_t, cloned into the body: it must stay alive and its
-// buffers allocated while the loop exists). live/done/done0 are [s] bool (one byte
-// each), ctrl int32[4]. On failure *node_type holds the type of the node
-// instantiation refused (-1 if none) and *result its
+// Build and instantiate a loop program around `round_graph` (a captured
+// cudaGraph_t, cloned into the body: it must stay alive and its buffers
+// allocated while the loop exists). `pre_graph` and `post_graph`, each
+// optional (null), are captured graphs run before the entry kernel and
+// after the loop (the stream program's init and finish). live/done/done0
+// are [s] bool (one byte each), ctrl int32[4]. On failure *node_type holds
+// the type of the node instantiation refused (-1 if none) and *result its
 // cudaGraphInstantiateResult.
-int device_loop_graph_create(void* round_graph, const void* live,
+int device_loop_graph_create(void* pre_graph, void* round_graph,
+                             void* post_graph, const void* live,
                              const void* done, void* done0, void* ctrl, int s,
                              void** out, int* node_type, int* result) {
   *out = nullptr;
@@ -127,6 +138,12 @@ int device_loop_graph_create(void* round_graph, const void* live,
   cudaGraph_t g = nullptr;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return (int)e;
+  cudaGraphNode_t pre = nullptr;
+  if (pre_graph) {
+    e = cudaGraphAddChildGraphNode(&pre, g, nullptr, 0,
+                                   (cudaGraph_t)pre_graph);
+    if (e != cudaSuccess) return fail(g, e);
+  }
   cudaGraphConditionalHandle h;
   e = cudaGraphConditionalHandleCreate(&h, g, 1, cudaGraphCondAssignDefault);
   if (e != cudaSuccess) return fail(g, e);
@@ -145,7 +162,8 @@ int device_loop_graph_create(void* round_graph, const void* live,
   kp.blockDim = dim3(kThreads);
   kp.kernelParams = entry_args;
   cudaGraphNode_t entry, loop_node, child, step;
-  e = cudaGraphAddKernelNode(&entry, g, nullptr, 0, &kp);
+  e = cudaGraphAddKernelNode(&entry, g, pre ? &pre : nullptr, pre ? 1 : 0,
+                             &kp);
   if (e != cudaSuccess) return fail(g, e);
 
   cudaGraphNodeParams cp = {};
@@ -162,6 +180,12 @@ int device_loop_graph_create(void* round_graph, const void* live,
   kp.kernelParams = step_args;
   e = cudaGraphAddKernelNode(&step, body, &child, 1, &kp);
   if (e != cudaSuccess) return fail(g, e);
+  if (post_graph) {
+    cudaGraphNode_t post;
+    e = cudaGraphAddChildGraphNode(&post, g, &loop_node, 1,
+                                   (cudaGraph_t)post_graph);
+    if (e != cudaSuccess) return fail(g, e);
+  }
 
   cudaGraphExec_t exec = nullptr;
   cudaGraphInstantiateParams ip = {};

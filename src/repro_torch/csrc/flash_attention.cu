@@ -7,7 +7,8 @@
 // f32. Sq and Sk tails are masked in the kernel, so no shape needs padding.
 // Causal: KV tiles wholly past the diagonal of the q tile are skipped;
 // masked scores inside a tile take -1e30 like the plain version, columns
-// past Sk take -inf. Head dims 16, 32, 64, 80 and 128 are compiled. The
+// past Sk take -inf. Head dims 16, 32, 64, 80, 128 and 256 are compiled
+// (256: gemma-7b's attention). The
 // dtype alone picks the kernel: bf16 -> flash_fwd_mma_kernel, f32 ->
 // flash_fwd_kernel.
 //
@@ -36,6 +37,11 @@
 // the asynchronous warpgroup product would buy nothing that the loads do
 // not already hide; tests/test_torch_flash_numerics.py holds this rounding
 // plan against the JAX kernel at 2e-2.
+//
+// Head dim 256 keeps the 64-row tiles on both routes: the bf16 route's
+// Q + two K/V buffers take 165 KB of shared memory (one block per SM) and
+// each thread holds 128 f32 accumulators; the f32 route's tiles take
+// 209 KB, under the 227 KB a block may use.
 //
 // f32 route (flash_fwd_kernel): 256 threads, four per query
 // row, tiles widened to f32 in padded shared memory, both products as f32
@@ -526,6 +532,7 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o, int b,
     FLASH_CASE(64)
     FLASH_CASE(80)
     FLASH_CASE(128)
+    FLASH_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

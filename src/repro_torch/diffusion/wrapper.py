@@ -11,6 +11,25 @@ rectified flow). The time embedding, ``t_mlp*``, the output norm and
 ``drift(x [R, *latent], t [R])`` with latent ``(..., S, L)`` flattens every
 row's batch into one ``[rows, S, L]`` backbone call with a per-row time —
 one call per CHORDS round for the whole slot x core grid.
+
+The f32 products whose row count follows the grid run in fixed pieces of
+rows (:func:`row_product`): the out-projection in pieces of
+:data:`OUT_PIECE_ROWS` token rows (:func:`out_project`) and the time MLP's
+two products in pieces of :data:`TIME_PIECE_ROWS` samples. The card's f32
+GEMM is chosen by shape, so one product over all rows gave a row other
+bits in a grid of 2 or 4 slots than alone (the time MLP at 16 samples
+against 8 or 32 on the H100; one ulp of the time embedding then flips
+bf16 roundings downstream), and the engines' bitwise contracts (overlap
+against sync, elastic against a fixed grid) failed for requests that ran
+rounds at another grid size. Every piece has one shape, so a row's bits
+do not depend on how many rows share the call.
+
+Training: :func:`diffusion_loss` is the rectified-flow loss, drawing its
+times and noise from a ``torch.Generator``; :func:`diffusion_loss_from`
+takes them as tensors (the JAX package's draws cannot be replayed in
+torch, so the parity tests feed both the same numbers). The loss runs the
+plain ops: the kernels have no backward, as in the JAX package, and a loss
+asked for them under autograd raises.
 """
 from __future__ import annotations
 
@@ -71,6 +90,34 @@ def time_embedding(t, dim=256, max_period=1e4):
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
+OUT_PIECE_ROWS = 512  # token rows a piece of the out-projection (one slot
+                      # of K=8 cores at 64 tokens)
+TIME_PIECE_ROWS = 8   # samples a piece of the time MLP's products
+
+
+def row_product(x, w, piece_rows: int):
+    """``x [..., k] @ w [k, n]`` over the flattened rows of ``x`` in pieces
+    of ``piece_rows`` rows, the last one padded with zero rows, so every
+    GEMM has the same shape and a row's bits do not depend on the rows
+    beside it (the card's f32 GEMM is chosen by shape). The pieces are
+    joined by ``cat``, so it differentiates."""
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    n = x2.shape[0]
+    pad = (-n) % piece_rows
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros(pad, k)])
+    out = torch.cat([x2[i:i + piece_rows] @ w
+                     for i in range(0, x2.shape[0], piece_rows)])
+    return out[:n].reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def out_project(hf, w):
+    """The f32 out-projection ``einsum("bsd,dl->bsl", hf, w)`` in pieces of
+    :data:`OUT_PIECE_ROWS` token rows (:func:`row_product`)."""
+    return row_product(hf, w, OUT_PIECE_ROWS)
+
+
 def denoise(params, cfg: ModelConfig, x, t):
     """x: [B, S, latent_dim]; t: scalar or [B] in [0, 1] (per-row times).
     Returns the velocity [B, S, latent_dim] in x's dtype."""
@@ -78,8 +125,8 @@ def denoise(params, cfg: ModelConfig, x, t):
     f32 = torch.float32
     h = torch.einsum("bsl,ld->bsd", x.to(dt_), params["in_proj"].to(dt_))
     te = time_embedding(torch.as_tensor(t, device=x.device))  # [256]/[B,256]
-    te = F.silu(te @ params["t_mlp1"].to(f32))
-    te = te @ params["t_mlp2"].to(f32)
+    te = F.silu(row_product(te, params["t_mlp1"].to(f32), TIME_PIECE_ROWS))
+    te = row_product(te, params["t_mlp2"].to(f32), TIME_PIECE_ROWS)
     if te.ndim == 2:
         te = te[:, None, :]
     h = h + te.to(dt_)
@@ -88,8 +135,7 @@ def denoise(params, cfg: ModelConfig, x, t):
     hf = hf * torch.rsqrt(torch.mean(hf * hf, -1, keepdim=True)
                           + cfg.norm_eps)
     hf = hf * params["out_norm"].to(f32)
-    return torch.einsum("bsd,dl->bsl", hf,
-                        params["out_proj"].to(f32)).to(x.dtype)
+    return out_project(hf, params["out_proj"].to(f32)).to(x.dtype)
 
 
 def make_drift(params, cfg: ModelConfig):
@@ -103,3 +149,45 @@ def make_drift(params, cfg: ModelConfig):
         return denoise(params, cfg, xf, tf).reshape(x.shape)
 
     return drift
+
+
+def _denoise_batch_t(params, cfg: ModelConfig, x, t_vec):
+    """Per-sample times (training): x [B, S, L], t_vec [B]. The port's
+    :func:`denoise` already takes a time per row, so this is that call (the
+    reference keeps a separate copy for its vector ``t``)."""
+    return denoise(params, cfg, x, t_vec)
+
+
+def _needs_grad(params) -> bool:
+    if isinstance(params, torch.Tensor):
+        return params.requires_grad
+    vals = params.values() if isinstance(params, dict) else \
+        (params[k] for k in params.keys())
+    return any(_needs_grad(v) for v in vals)
+
+
+def diffusion_loss_from(params, cfg: ModelConfig, x1, t, eps):
+    """Rectified-flow loss ``mean ||v(x_t, t) - (x1 - eps)||^2`` for given
+    times ``t`` [B, 1, 1] and noise ``eps`` (x1's shape), with
+    ``x_t = (1 - t) eps + t x1``. Raises for ``cfg.use_kernels`` under
+    autograd: the kernels have no backward."""
+    if cfg.use_kernels and torch.is_grad_enabled() and _needs_grad(params):
+        raise ValueError(
+            "diffusion_loss: the kernels have no backward (as in the JAX "
+            "package, whose training path runs use_kernels=False); train "
+            "with cfg.replace(use_kernels=False)")
+    x_t = (1.0 - t) * eps + t * x1
+    v = _denoise_batch_t(params, cfg, x_t, t[:, 0, 0])
+    target = x1 - eps
+    return torch.mean((v.to(torch.float32) - target.to(torch.float32)) ** 2)
+
+
+def diffusion_loss(params, cfg: ModelConfig, x1,
+                   generator: torch.Generator):
+    """Rectified-flow training loss with ``t ~ U(0, 1)`` per sample and
+    ``eps ~ N(0, I)`` drawn from ``generator`` (on x1's device)."""
+    b = x1.shape[0]
+    t = torch.rand((b, 1, 1), generator=generator, device=x1.device)
+    eps = torch.randn(x1.shape, generator=generator, device=x1.device,
+                      dtype=x1.dtype)
+    return diffusion_loss_from(params, cfg, x1, t, eps)

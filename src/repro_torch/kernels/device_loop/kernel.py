@@ -7,6 +7,9 @@ condition kernel runs as a node of the ``multi`` loop program that
 WHILE node whose body is the captured round followed by the kernel, which
 sets the node's condition for the next iteration
 (``cudaGraphSetConditional``), so the device decides when the loop ends.
+The batch stream program (``serve/graphs.py::GraphStream``) is the same
+loop between a captured init and finish, its condition evaluated on
+``~accepted`` with budget N.
 Bound: launch latency (a few bytes per slot).
 
 :func:`loop_step` launches the same kernel on its own (no graph), for the
@@ -39,7 +42,7 @@ def _fn(name: str):
     fn = getattr(_lib(), name)
     fn.argtypes = {
         "device_loop_step": [_P] * 4 + [_I, _I, _P],
-        "device_loop_graph_create": [_P] * 5 + [_I, _P, _P, _P],
+        "device_loop_graph_create": [_P] * 7 + [_I, _P, _P, _P],
         "device_loop_graph_launch": [_P, _P],
         "device_loop_graph_destroy": [_P],
         "device_loop_versions": [_P, _P],
@@ -89,16 +92,20 @@ def loop_step(live, done, done0, ctrl, flags: int):
     return ctrl[3]
 
 
-def graph_create(round_graph: int, live, done, done0, ctrl) -> int:
-    """Build and instantiate the ``multi`` loop program (it leaves at the
-    first new accept) around the captured round
-    ``round_graph`` (a ``cudaGraph_t`` as an int, kept alive by the
-    caller). Returns the program's handle; raises, naming the node type the
-    driver refused, if it cannot be built."""
+def graph_create(round_graph: int, live, done, done0, ctrl,
+                 pre_graph: int = 0, post_graph: int = 0) -> int:
+    """Build and instantiate a loop program (it leaves at the first new
+    accept, or when no lane is live or the budget is spent) around the
+    captured round ``round_graph`` (a ``cudaGraph_t`` as an int, kept alive
+    by the caller), with the optional captured ``pre_graph`` before the
+    entry kernel and ``post_graph`` after the loop (the stream program's
+    init and finish). Returns the program's handle; raises, naming the
+    node type CUDA refused, if it cannot be built."""
     s = _flags_operands(live, done, done0, ctrl)
     out, node, result = _P(), _I(-1), _I(0)
     err = _fn("device_loop_graph_create")(
-        round_graph, live.data_ptr(), done.data_ptr(), done0.data_ptr(),
+        pre_graph or None, round_graph, post_graph or None,
+        live.data_ptr(), done.data_ptr(), done0.data_ptr(),
         ctrl.data_ptr(), s, ctypes.byref(out), ctypes.byref(node),
         ctypes.byref(result))
     if err:

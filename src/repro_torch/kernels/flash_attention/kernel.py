@@ -11,8 +11,10 @@ K/V tiles loaded by ``cp.async`` into two buffers); at the serving shapes
 its bound is bytes (q/k/v/o once), which its overlapped loads chase. f32
 keeps the CUDA-core kernel (f32 FMAs; a bf16 or TF32 product cannot hold
 the 2e-5 contract), bound by its shared-memory operand traffic. Sq/Sk
-tails are masked in the kernels. Head dims 16, 32, 64, 80 and 128 are
-compiled (80: ``zamba2-2.7b``'s shared block; 16: its reduced config).
+tails are masked in the kernels. Head dims 16, 32, 64, 80, 128 and 256
+are compiled (80: ``zamba2-2.7b``'s shared block; 16: its reduced config;
+256: ``gemma-7b``); :func:`plan` mirrors each launch's grid and shared
+memory, which the CPU tests hold to the card's 227 KB a block.
 CUDA tensors only; ``ops.py`` picks the plain version for CPU tensors.
 The kernels count their launches on the device (``kernels.launch_counts``).
 """
@@ -20,14 +22,45 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+BQ = BK = 64                 # query and KV rows a tile, both routes
+SMEM_PER_BLOCK = 232448      # bytes of shared memory a block may use (H100)
+
+
+class FlashPlan(NamedTuple):
+    kernel: str
+    threads: int
+    smem: int      # dynamic shared memory, bytes
+    grid: tuple    # (q tiles, heads, batch)
+
+
+def plan(dtype, dh: int, b: int, sq: int, sk: int, h: int,
+         causal: bool) -> FlashPlan:
+    """The launch ``csrc/flash_attention.cu`` makes for these shapes (its
+    ``launch_bf16`` / ``launch_f32``): bf16 holds Q and one or two K/V
+    buffers of 64 rows padded by 16 bytes; f32 holds Q, K, V and P widened
+    to f32 with one float of padding a row."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash kernel: head_dim {dh} not in {HEAD_DIMS}")
+    grid = ((sq + BQ - 1) // BQ, h, b)
+    if dtype == torch.bfloat16:
+        n_kv = (sk + BK - 1) // BK
+        if causal:
+            n_kv = min(n_kv, (sq + BQ - 1) // BQ)
+        tile = 2 * BQ * (dh + 8)
+        return FlashPlan("flash_fwd_mma_kernel", 128,
+                         tile * (1 + 2 * (2 if n_kv > 1 else 1)), grid)
+    if dtype == torch.float32:
+        smem = 4 * (BQ * (dh + 1) + BK * (dh + 1) + BK * dh + BQ * (BK + 1))
+        return FlashPlan("flash_fwd_kernel", 256, smem, grid)
+    raise ValueError(f"flash kernel: dtype {dtype} is neither f32 nor bf16")
 
 
 def _lib():

@@ -14,7 +14,9 @@ directly. Conventions:
   ``thread_name`` metadata events;
 * spans are **complete events** (``ph: "X"``, ts + dur, microseconds) —
   emitted only at commit points, so they are well-nested per track by
-  construction;
+  construction; ``dur`` comes from the two converted readings
+  (:func:`span_dur_us`), so a span that ends at the reading where the next
+  one starts abuts it exactly in microseconds at any trace age;
 * instants are thread-scoped (``ph: "i"``, ``s: "t"``); counters are
   ``ph: "C"`` (Perfetto renders them as area tracks);
 * ``otherData`` carries the trace schema/version, the ring-buffer drop
@@ -26,6 +28,7 @@ directly. Conventions:
 from __future__ import annotations
 
 import json
+import math
 from typing import Optional
 
 from repro_torch.obs.metrics import MetricsRegistry
@@ -43,6 +46,22 @@ def _track_ids(track, extra_pids):
     return pid, int(lane)
 
 
+def span_dur_us(ts_us: float, end_us: float) -> float:
+    """The duration to write for a span from ``ts_us`` to ``end_us``: the
+    one nearest ``end_us - ts_us`` whose sum with ``ts_us`` does not pass
+    ``end_us`` (and equals it wherever a float can), so spans that share a
+    reading abut exactly. Converting ``ts`` and ``dur`` separately does not:
+    past 2**23 us (8.4 s) one ulp of a timestamp exceeds a checker's slack."""
+    dur = max(0.0, end_us - ts_us)
+    while dur > 0.0 and ts_us + dur > end_us:
+        dur = math.nextafter(dur, 0.0)
+    if ts_us + dur < end_us:
+        up = math.nextafter(dur, math.inf)
+        if ts_us + up == end_us:
+            dur = up
+    return dur
+
+
 def chrome_trace(tracer: Tracer, metrics: Optional[MetricsRegistry] = None,
                  meta: Optional[dict] = None) -> dict:
     """Render the tracer buffer as a Chrome trace-event JSON document."""
@@ -52,10 +71,11 @@ def chrome_trace(tracer: Tracer, metrics: Optional[MetricsRegistry] = None,
     for ev in tracer.events:
         pid, tid = _track_ids(ev.track, extra_pids)
         seen_tracks[(pid, tid)] = ev.track
+        ts_us = ev.ts * 1e6
         rec = {"name": ev.name, "ph": ev.ph, "pid": pid, "tid": tid,
-               "ts": ev.ts * 1e6, "cat": ev.name.split("/")[0]}
+               "ts": ts_us, "cat": ev.name.split("/")[0]}
         if ev.ph == "X":
-            rec["dur"] = ev.dur * 1e6
+            rec["dur"] = span_dur_us(ts_us, ev.end * 1e6)
             rec["args"] = ev.args
         elif ev.ph == "i":
             rec["s"] = "t"

@@ -62,6 +62,8 @@ class Event(NamedTuple):
     dur: float               # seconds ("X" only; 0 otherwise)
     track: Tuple[str, int]   # (group, lane) -> Chrome (pid, tid)
     args: dict
+    end: float = 0.0         # the end reading ("X" only): ts + dur need
+                             # not equal it in floating point
 
 
 class _NullSpan:
@@ -154,8 +156,8 @@ class Tracer:
             return
         if round_idx is not None:
             args["round"] = int(round_idx)
-        end = self.now() if t1 is None else t1
-        self._push(Event(name, "X", t0, max(0.0, end - t0), track, args))
+        end = max(t0, self.now() if t1 is None else t1)
+        self._push(Event(name, "X", t0, end - t0, track, args, end))
 
     def counter(self, name: str, value: float,
                 track: Tuple[str, int] = ("host", 0)) -> None:

@@ -128,7 +128,14 @@ def _resolve_executor(drift, tgrid, n_steps, executor, use_kernel,
 class StreamingSampler:
     """Early-exit CHORDS sampler. ``batched=True`` treats axis 0 of ``x0``
     as independent requests with per-request accept state; ``live`` masks
-    padding rows (born accepted)."""
+    padding rows (born accepted).
+
+    The program is the JAX package's stream loop on the device
+    (``RoundExecutor.stream``): on the card one CUDA graph launch a call,
+    and ``sample`` reads back once (``rounds`` and ``chosen`` together,
+    and with ``host=True`` the samples too). ``host_readbacks`` counts the
+    host's waits for the device: one a call on the graph path, one more a
+    round on the eager one (its loop condition)."""
 
     def __init__(self, drift, n_steps: int, num_cores: int, tgrid,
                  i_seq: Optional[Sequence[int]] = None, rtol: float = 0.05,
@@ -149,17 +156,44 @@ class StreamingSampler:
         self._run = self.executor.stream(StreamSpec(
             num_cores=num_cores, i_seq=tuple(self.i_seq), rtol=rtol,
             batched=batched))
+        self._readbacks = 0
 
-    def sample(self, x0, live=None) -> SampleOut:
+    @property
+    def program(self):
+        """The stream program (``EagerStream`` or ``GraphStream``)."""
+        return self._run
+
+    @property
+    def host_readbacks(self) -> int:
+        return self._readbacks + self._run.readbacks
+
+    def _to_host(self, *ts):
+        """Copy ``ts`` to the host with one wait for the device."""
+        self._readbacks += 1
+        if self.device.type != "cuda":
+            return [t.clone() for t in ts]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in ts]
+        for h, t in zip(host, ts):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def sample(self, x0, live=None, host: bool = False) -> SampleOut:
+        """One call of the stream program. ``host=True`` returns the
+        samples on the host, read back with ``rounds`` and ``chosen``."""
         x0 = torch.as_tensor(x0).to(self.device)
         req_shape = (x0.shape[0],) if self.batched else ()
         if live is None:
             live = torch.ones(req_shape, dtype=torch.bool, device=self.device)
-        out, rounds, chosen = self._run(x0, torch.as_tensor(live).to(
-            self.device))
+        out, rc = self._run(x0, torch.as_tensor(live).to(self.device))
+        if host:
+            out, rc = self._to_host(out, rc)
+        else:
+            (rc,) = self._to_host(rc)
+        rounds, chosen = rc.numpy()
         if self.batched:
-            rounds = rounds.cpu().numpy()
-            return SampleOut(out, rounds, chosen.cpu().numpy(),
+            return SampleOut(out, rounds, chosen,
                              self.n / np.maximum(1, rounds))
         rounds = int(rounds)
         return SampleOut(out, rounds, int(chosen), self.n / max(1, rounds))
@@ -168,7 +202,8 @@ class StreamingSampler:
 class ChordsEngine:
     """Static-batch request server around the streaming sampler: a batch is
     held until its slowest request converges; partial batches are padded to
-    ``max_batch`` with a live mask (one program ever)."""
+    ``max_batch`` with a live mask (one program ever: on the card one CUDA
+    graph, one launch and one readback a batch)."""
 
     def __init__(self, drift_builder: Callable, latent_shape: tuple,
                  n_steps: int, num_cores: int, tgrid, max_batch: int = 8,
@@ -202,8 +237,8 @@ class ChordsEngine:
         live = torch.tensor([True] * len(batch) + [False] * pad,
                             device=self.device)
         t0 = time.perf_counter()
-        out = self.sampler.sample(noise, live=live)
-        sample = out.sample.cpu()  # one transfer for the batch
+        out = self.sampler.sample(noise, live=live, host=True)
+        sample = out.sample  # on the host: one readback for the batch
         dt = time.perf_counter() - t0
         real = np.arange(len(batch))
         self.stats.append({"batch": len(batch), "padded": pad,

@@ -314,56 +314,134 @@ def _build_grid(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool,
                         reset=fns["init_state"], close=lambda: None)
 
 
-def _build_stream(drift, tgrid, n: int, spec: StreamSpec,
-                  use_kernel: bool) -> Callable:
-    """The early-exit streaming program (StreamingSampler's).
+class StreamState(NamedTuple):
+    """The stream program's loop state (the JAX loop's carry, in order),
+    every leaf on the device."""
 
-    The reference runs it as one ``while_loop`` on the device; here the
-    host reads ``accepted.all()`` back once per round to stop early (rounds
-    after every request accepted cannot change a result). That per-round
-    sync is a cost to remove with the multi-round device loop (ROADMAP.md
-    queue 1 item 8).
-    """
+    carry: ChordsCarry          # [K, ...] lockstep grid
+    r: torch.Tensor             # [] int32 round counter
+    accepted: torch.Tensor      # [B] or [] accepted (padding born accepted)
+    last_out: torch.Tensor      # latest streamed output
+    has_last: torch.Tensor      # [] bool: a streamed output exists
+    chosen: torch.Tensor        # accepted core (int32)
+    rounds: torch.Tensor        # round of the accept (int32; 0: none yet)
+    result: torch.Tensor        # accepted output
+    pending: torch.Tensor       # [max(B, 1)] bool: ~accepted, the loop
+    #                             condition's operand (csrc/device_loop.cu)
+
+
+def emit_core_table(i_seq, n: int) -> np.ndarray:
+    """``table[r]`` = the core whose output arrives at round ``r``
+    (the first such core, as ``argmax(emit == r)``), -1 where none does;
+    rounds 0 .. n + 1."""
+    emit = scheduler.emit_rounds(list(i_seq), n)
+    table = np.full(n + 2, -1, np.int32)
+    for k in range(len(emit) - 1, -1, -1):
+        if 0 <= emit[k] <= n + 1:
+            table[emit[k]] = k
+    return table
+
+
+def _stream_fns(drift, tgrid, n: int, spec: StreamSpec,
+                use_kernel: bool) -> dict:
+    """The early-exit streaming program (StreamingSampler's) as the JAX
+    loop's pieces: ``init(x0, live)``, one round ``body(state)`` and
+    ``finish(state) -> (result, rc)`` with ``rc = [rounds, chosen]``
+    stacked (int32, one readback). The round counter, the emitting core
+    (a gather from the static :func:`emit_core_table`), ``has_last`` and
+    every decision are device tensors: a round takes no host decision."""
     dev = tgrid.device
+    k = spec.num_cores
     i_arr = torch.as_tensor(spec.i_seq, dtype=torch.int32, device=dev)
-    emit = scheduler.emit_rounds(list(spec.i_seq), n)  # static: host side
-    round_body = make_round_body(drift, tgrid, i_arr, n, spec.num_cores,
+    emit_core = torch.as_tensor(emit_core_table(spec.i_seq, n), device=dev)
+    round_body = make_round_body(drift, tgrid, i_arr, n, k,
                                  use_kernel=use_kernel)
     rtol, bdim = spec.rtol, (1 if spec.batched else 0)
 
-    def run(x0, live):
-        carry = chords_init_carry(x0, i_arr, spec.num_cores)
+    def init(x0, live) -> StreamState:
         accepted = ~live
-        last_out = torch.zeros_like(x0)
-        has_last = False
-        chosen = torch.zeros(live.shape, dtype=torch.int32, device=dev)
-        rounds = torch.zeros(live.shape, dtype=torch.int32, device=dev)
-        result = torch.zeros_like(x0)
-        for r in range(1, n + 1):
-            if bool(accepted.all()):
-                break
-            carry, _ = round_body(carry, r)
-            if not (emit == r).any():
-                continue  # no arrival this round: accept state unchanged
-            emitted_k = int(np.argmax(emit == r))  # the core emitting now
-            out = carry.x[emitted_k]
-            if has_last:
-                ok = accept_test(out, last_out, rtol, bdim) & ~accepted
-                result = torch.where(bmask(ok, out), out, result)
-                rounds = torch.where(ok, torch.full_like(rounds, r), rounds)
-                chosen = torch.where(ok, torch.full_like(chosen, emitted_k),
-                                     chosen)
-                accepted = accepted | ok
-            last_out = out
-            has_last = True
+        return StreamState(
+            carry=chords_init_carry(x0, i_arr, k),
+            r=torch.ones((), dtype=torch.int32, device=dev),
+            accepted=accepted, last_out=torch.zeros_like(x0),
+            has_last=torch.zeros((), dtype=torch.bool, device=dev),
+            chosen=torch.zeros(live.shape, dtype=torch.int32, device=dev),
+            rounds=torch.zeros(live.shape, dtype=torch.int32, device=dev),
+            result=torch.zeros_like(x0), pending=live.reshape(-1).clone())
+
+    def body(st: StreamState) -> StreamState:
+        carry, _ = round_body(st.carry, st.r)
+        core = emit_core.index_select(0, st.r.reshape(1).long())  # [1]
+        any_emit = core[0] >= 0
+        emitted_k = core.clamp(min=0)
+        out = carry.x.index_select(0, emitted_k.long())[0]
+        ok = any_emit & st.has_last & accept_test(out, st.last_out, rtol,
+                                                  bdim) & ~st.accepted
+        result = torch.where(bmask(ok, out), out, st.result)
+        rounds = torch.where(ok, st.r, st.rounds)
+        chosen = torch.where(ok, emitted_k[0], st.chosen)
+        accepted = st.accepted | ok
+        last_out = torch.where(any_emit, out, st.last_out)
+        return StreamState(carry, st.r + 1, accepted, last_out,
+                           st.has_last | any_emit, chosen, rounds, result,
+                           ~accepted.reshape(-1))
+
+    def finish(st: StreamState, live):
         # requests that never early-exited take the final emission — core
         # 0's full-round output, i.e. the sequential solve
-        fell_through = live & (rounds == 0)
-        result = torch.where(bmask(fell_through, result), last_out, result)
-        rounds = torch.where(fell_through, torch.full_like(rounds, n), rounds)
-        return result, rounds, chosen
+        fell_through = live & (st.rounds == 0)
+        result = torch.where(bmask(fell_through, st.result), st.last_out,
+                             st.result)
+        rounds = torch.where(fell_through,
+                             torch.full_like(st.rounds, n), st.rounds)
+        return result, torch.stack([rounds, st.chosen])
 
-    return run
+    return {"init": init, "body": body, "finish": finish}
+
+
+class EagerStream:
+    """The stream program run eagerly: the plain version on the CUDA card
+    (``RoundExecutor(eager=True)``), and the program on the CPU. The loop's
+    exit is the JAX loop's ``~all(accepted) & r <= n``, evaluated by the
+    device loop's condition (``kernels/device_loop``) on ``pending`` with
+    budget N; the host reads it once a round (``readbacks`` counts those
+    reads on a CUDA card, where each is a device round trip)."""
+
+    def __init__(self, fns: dict, n: int, device):
+        self._fns = fns
+        self.n = n
+        self.device = torch.device(device)
+        self.readbacks = 0
+        self.rounds_run = 0
+
+    def __call__(self, x0, live):
+        st = self._fns["init"](x0, live)
+        s = st.pending.shape[0]
+        ctrl = torch.tensor([self.n, 0, 0, 0], dtype=torch.int32,
+                            device=self.device)
+        done = torch.zeros(s, dtype=torch.bool, device=self.device)
+        done0 = torch.zeros_like(done)
+        go = loop_step(st.pending, done, done0, ctrl, FIRST)
+        cuda = self.device.type == "cuda"
+        while bool(go):
+            self.readbacks += cuda
+            st = self._fns["body"](st)
+            self.rounds_run += 1
+            go = loop_step(st.pending, done, done0, ctrl, 0)
+        self.readbacks += cuda
+        return self._fns["finish"](st, live)
+
+
+def _build_stream(drift, tgrid, n: int, spec: StreamSpec, use_kernel: bool,
+                  eager: bool, batch_shape=None) -> Callable:
+    """The stream program for ``spec``: eager, or on CUDA one graph for the
+    batch shape of ``x0`` (``serve/graphs.py::GraphStream``), built at its
+    first call."""
+    fns = _stream_fns(drift, tgrid, n, spec, use_kernel)
+    if eager:
+        return EagerStream(fns, n, tgrid.device)
+    from repro_torch.serve.graphs import GraphStream
+    return GraphStream(fns, n, tgrid.device)
 
 
 class RoundExecutor:
@@ -424,8 +502,9 @@ class RoundExecutor:
         cache[key] = val
         while len(cache) > self.max_entries:  # least recently used first
             evicted = cache.pop(unpinned.pop(0))
-            if isinstance(evicted, GridPrograms):
-                evicted.close()
+            close = getattr(evicted, "close", None)  # graphs free memory
+            if close is not None:
+                close()
         return val, True
 
     def reserve_grid_capacity(self, n: int) -> None:
@@ -456,12 +535,13 @@ class RoundExecutor:
         return progs
 
     def stream(self, spec: StreamSpec) -> Callable:
-        """``(x0, live) -> (result, rounds, chosen)`` early-exit streaming
-        program for ``spec``."""
+        """``(x0, live) -> (result, rc)`` early-exit streaming program for
+        ``spec``, ``rc = [rounds, chosen]`` (int32): an :class:`EagerStream`,
+        or on CUDA a ``GraphStream`` (one graph launch a call)."""
         fn, missed = self._lru_get(
             self._streams, spec,
             lambda: _build_stream(self.drift, self.tgrid, self.n, spec,
-                                  self.use_kernel))
+                                  self.use_kernel, self.eager))
         if missed:
             self._c_stream_traces.inc()
             self.tracer.instant("retrace", kind="stream",

@@ -37,6 +37,15 @@ launch, which puts its launches in the capture. A capture or instantiation
 error raises: there is no eager fallback. Loop programs need a CUDA 12.4
 runtime and driver.
 
+The batch stream program (``StreamingSampler``, ``ChordsEngine``) is
+:class:`GraphStream`: one graph for a batch shape, the JAX loop
+``_build_stream_fn`` on the device: a captured ``init`` from static input
+buffers, the device loop's entry kernel, a WHILE node whose body is the
+captured round and the condition kernel (exit ``~all(accepted) & r <= N``:
+the condition on ``pending = ~accepted`` with budget N), then the captured
+fall-through and outputs. A call is two input copies, one graph launch and
+the caller's one readback, however many rounds it ran.
+
 A replay launches the captured kernels without calling their wrappers; the
 kernels count their own launches on the device (``kernels.launch_counts``),
 so the counts cover replays with nothing added on the host.
@@ -50,7 +59,7 @@ import torch
 
 from repro_torch.kernels.device_loop import kernel as loop_kernel
 from repro_torch.serve.executor import (GridPrograms, GridSpec, SlotState,
-                                        state_tensors)
+                                        StreamState, state_tensors)
 
 WARMUP_ROUNDS = 2
 
@@ -195,3 +204,129 @@ class GraphGrid:
                             keep=self.keep, restore=self.restore,
                             put=self.put, reset=self.reset,
                             close=self.close, graphs=self)
+
+
+def _stream_tensors(st: StreamState) -> list:
+    return list(st.carry) + list(st[1:])
+
+
+def _copy_stream(dst: StreamState, src: StreamState) -> StreamState:
+    for d, s in zip(_stream_tensors(dst), _stream_tensors(src)):
+        if d is not s:
+            d.copy_(s)
+    return dst
+
+
+class _StreamGraph:
+    """One batch shape's stream program: static buffers and the loop
+    graph around the captured init, round and finish."""
+
+    def __init__(self, fns, n: int, device, x0, live):
+        self.device = device
+        self._graphs = []
+        self._loop = None
+        with torch.no_grad(), torch.cuda.device(device):
+            self.x0 = x0.clone()
+            self.live = live.clone()
+            self.state = fns["init"](self.x0, self.live)
+            s = self.state.pending.shape[0]
+            self.ctrl = torch.tensor([n, 0, 0, 0], dtype=torch.int32,
+                                     device=device)
+            self.done = torch.zeros(s, dtype=torch.bool, device=device)
+            self.done0 = torch.zeros_like(self.done)
+            res, rc = fns["finish"](self.state, self.live)
+            self.result, self.rc = torch.empty_like(res), torch.empty_like(rc)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):  # first launches set attributes
+                for _ in range(WARMUP_ROUNDS):
+                    fns["body"](fns["init"](self.x0, self.live))
+            torch.cuda.current_stream(device).wait_stream(side)
+
+            def init():
+                _copy_stream(self.state, fns["init"](self.x0, self.live))
+
+            def body():
+                _copy_stream(self.state, fns["body"](self.state))
+
+            def finish():
+                res, rc = fns["finish"](self.state, self.live)
+                self.result.copy_(res)
+                self.rc.copy_(rc)
+
+            raw = []
+            for fn in (init, body, finish):
+                g = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(g):
+                    fn()
+                g.instantiate()
+                self._graphs.append(g)
+                raw.append(g.raw_cuda_graph())
+            self._loop = loop_kernel.graph_create(
+                raw[1], self.state.pending, self.done, self.done0, self.ctrl,
+                pre_graph=raw[0], post_graph=raw[2])
+            torch.cuda.synchronize(device)
+
+    def __call__(self, x0, live):
+        self.x0.copy_(x0)
+        self.live.copy_(live)
+        loop_kernel.graph_launch(self._loop, self.device.index or 0)
+        return self.result.clone(), self.rc.clone()
+
+    def close(self) -> None:
+        """Free the loop program and the captured graphs' memory pools."""
+        self._destroy_loop()
+        for g in self._graphs:
+            g.reset()
+        self._graphs = []
+
+    def _destroy_loop(self) -> None:
+        loop, self._loop = self._loop, None
+        if loop is not None:
+            loop_kernel.graph_destroy(loop)
+
+    def __del__(self):
+        try:
+            self._destroy_loop()
+        except Exception:  # noqa: BLE001 - a finalizer must not raise
+            pass
+
+
+class GraphStream:
+    """The stream program of one ``StreamSpec`` on CUDA: a
+    :class:`_StreamGraph` for each batch shape it is called with (built at
+    the first call with that shape: capture + instantiation, ``build_s``).
+    ``ChordsEngine`` pads every batch to ``max_batch``, so it holds one.
+    The outputs are copied out of the graph's buffers, so a later call
+    does not overwrite what an earlier one returned. ``readbacks`` is 0:
+    the program reads nothing back (the caller's readback is its own)."""
+
+    readbacks = 0
+
+    def __init__(self, fns, n: int, device):
+        self._fns = fns
+        self.n = n
+        self.device = torch.device(device)
+        self._shapes: Dict[tuple, _StreamGraph] = {}
+        self.build_s = 0.0
+
+    def __call__(self, x0, live):
+        key = (tuple(x0.shape), x0.dtype, tuple(live.shape))
+        g = self._shapes.get(key)
+        if g is None:
+            t0 = time.perf_counter()
+            g = self._shapes[key] = _StreamGraph(self._fns, self.n,
+                                                 self.device, x0, live)
+            self.build_s += time.perf_counter() - t0
+        return g(x0, live)
+
+    @property
+    def rounds_run(self) -> int:
+        """Rounds every loop of this program ran so far (the condition
+        kernel's count on the device; waits for it)."""
+        return sum(int(g.ctrl[2]) for g in self._shapes.values())
+
+    def close(self) -> None:
+        for g in self._shapes.values():
+            g.close()
+        self._shapes.clear()

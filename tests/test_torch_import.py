@@ -61,7 +61,9 @@ def test_no_jax_or_repro_import(path):
 
 def _entry_points():
     from repro_torch.configs import get_config
-    from repro_torch.core import chords_sample, uniform_tgrid
+    from repro_torch.core import (GaussianMixture, chords_sample,
+                                  paradigms_sample, sequential_sample,
+                                  srds_sample, uniform_tgrid)
     from repro_torch.diffusion import init_wrapper
     from repro_torch.launch import serve as launch_serve
     from repro_torch.serve import (ChordsEngine, ContinuousEngine,
@@ -80,17 +82,53 @@ def _entry_points():
         "init_wrapper": lambda: init_wrapper(
             get_config("chords-dit-xl", reduced=True), 8),
         "launch.serve": lambda: launch_serve.main(["--reduced"]),
+        "paradigms_sample": lambda: paradigms_sample(drift, torch.zeros(2),
+                                                     tg, window=2),
+        "srds_sample": lambda: srds_sample(drift, torch.zeros(2), tg,
+                                           num_segments=2),
+        "sequential_sample(heun)": lambda: sequential_sample(
+            drift, torch.zeros(2), tg, method="heun"),
+        "GaussianMixture.random": lambda: GaussianMixture.random(
+            torch.Generator()),
     }
 
 
 @pytest.mark.parametrize("name", ["ContinuousEngine", "ChordsEngine",
                                   "StreamingSampler", "chords_sample",
-                                  "init_wrapper", "launch.serve"])
+                                  "init_wrapper", "launch.serve",
+                                  "paradigms_sample", "srds_sample",
+                                  "sequential_sample(heun)",
+                                  "GaussianMixture.random"])
 def test_entry_point_defaults_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the CUDA default is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
+
+
+@pytest.mark.parametrize("script,args", [
+    ("torch_quickstart.py", []),
+    ("torch_train_denoiser.py", ["--steps", "1"]),
+    ("torch_serve_diffusion.py", ["--requests", "1"])])
+def test_examples_default_to_cuda(script, args):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the CUDA default is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / script),
+                           *args], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr, \
+        proc.stderr[-2000:]
+
+
+def test_slice_eight_modules_are_covered():
+    """The modules of the sample-and-train slice are among those imported
+    above without JAX."""
+    assert {"repro_torch.core.baselines", "repro_torch.core.reward",
+            "repro_torch.core.solvers", "repro_torch.diffusion.schedules",
+            "repro_torch.diffusion.wrapper", "repro_torch.optim.optimizer",
+            "repro_torch.dist.checkpoint", "repro_torch.utils.tree",
+            "repro_torch.serve.graphs"} <= set(_port_modules())
 
 
 def test_new_serving_modules_are_covered():

@@ -247,3 +247,33 @@ def test_rmsnorm_launch_config_packs_the_plan(d, aligned):
         assert (c & 1, c >> 1 & 1) == codes
         assert (c >> 2 & 3, c >> 4 & 15, c >> 12 & 4095, c >> 8 & 15,
                 c >> 24 & 127) == tuple(p)
+
+
+# -- flash attention: shared memory of every compiled head dim ---------------
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,sk,causal", [(64, 64, False), (200, 200, True),
+                                          (64, 333, False)])
+def test_flash_plan_fits_a_block_at_every_head_dim(dh, dtype, sq, sk,
+                                                   causal):
+    """Each launch's dynamic shared memory stays within the 227 KB a block
+    may use on the H100, head dim 256 included (bf16: Q and two K/V
+    buffers, 165 KB; f32: 209 KB)."""
+    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                            SMEM_PER_BLOCK)
+    from repro_torch.kernels.flash_attention.kernel import plan as fplan
+    assert dh in HEAD_DIMS
+    p = fplan(dtype, dh, 2, sq, sk, 8, causal)
+    assert 0 < p.smem <= SMEM_PER_BLOCK
+    assert p.grid == ((sq + 63) // 64, 8, 2)
+    if dh == 256:
+        want = {torch.bfloat16: 2 * 64 * 264 * (5 if sk > 64 else 3),
+                torch.float32: 213760}[dtype]
+        assert p.smem == want
+
+
+def test_flash_plan_refuses_an_uncompiled_head_dim():
+    from repro_torch.kernels.flash_attention.kernel import plan as fplan
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fplan(torch.bfloat16, 96, 1, 64, 64, 1, False)
