@@ -113,7 +113,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (speedup, latent RMSE); (b) ``chords-dit-xl``'s full widths
               cut to 4 layers, 10 AdamW steps on one fixed batch in bf16
               (loss finite and falling, s a step, peak memory); (c) one f32
-              train step of the micro config, card against CPU.
+              train step of the micro config, card against CPU;
+18. lm-generate — LM serving through ``repro_torch.serve``'s prefill and
+              KV-cache greedy decode at full width and depth
+              (``gemma-7b``, ``qwen2-vl-7b``, ``olmoe-1b-7b``, one at a
+              time; random bf16 weights from seed 0, the norm weights
+              drawn off 1; batch 4, prompts of 512 ids from seed 1,
+              ``max_len`` 1024, 64 decode steps):
+              kernels against plain, teacher-forced, within relative L2
+              2e-2 on every step's logits (top-1 agreement reported),
+              launches exact (2·L rmsnorm and L flash a prefill, 2·L
+              rmsnorm a decode step, none for the MoE), tokens bitwise on a
+              second run; ms a prefill (and its device time by kernel), ms
+              a decode step, tokens/s, host ms and device idle share a
+              step (profiler), memory; then the seven reduced LM configs
+              card (kernels, f32) against CPU: prefill 2e-5, decode 2e-3
+              (both read the bf16 cache). The kernels phase adds the LM
+              prefill shapes to flash's sweep (causal GQA group 7 and 2,
+              Dh 256), timed beside SDPA, and the LM rmsnorm shapes to
+              rmsnorm's.
 
 On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
 unless a phase asks for the eager programs. Launch counts are taken by the
@@ -140,7 +158,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
           "overlap-serve", "device-loop", "elastic-serve", "lane-serve",
           "stream-loop", "baselines", "ssd", "hybrid-drift", "hybrid-serve",
-          "hybrid-device-loop", "train-denoiser")
+          "hybrid-device-loop", "train-denoiser", "lm-generate")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -490,7 +508,16 @@ def check_rmsnorm(gen, records):
                                      (333, 4096, bf, bf, 0),
                                      (333, 1001, bf, bf, 0),
                                      (333, 2560, bf, bf, 1),
-                                     (333, 3072, f32, f32, 1)):
+                                     (333, 3072, f32, f32, 1),
+                                     # phase lm-generate: the qwen2-vl
+                                     # prefill, the gemma and qwen2-vl
+                                     # decode steps, the reduced configs'
+                                     # prefill and decode
+                                     (2048, 3584, bf, bf, 0),
+                                     (4, 3072, bf, bf, 0),
+                                     (4, 3584, bf, bf, 0),
+                                     (154, 64, f32, f32, 0),
+                                     (2, 64, f32, f32, 0)):
         tol = 1e-5 if dt == f32 else 5e-2
         flat = torch.randn(rows * d + offset, generator=gen, device="cuda")
         x = flat.to(dt)[offset:].view(rows, d)   # offset 1: not 16-aligned
@@ -639,7 +666,57 @@ def check_flash(gen, records):
             _flash_flops(b, s, s, h, dh, True), name)
         dh256[name] = rec
     emit("kernels/flash_attention", cases=cases, f32_route=f32,
-         hybrid_shape=hybrid, head_dim_256=dh256)
+         hybrid_shape=hybrid, head_dim_256=dh256,
+         lm_prefill=check_flash_lm(gen))
+
+
+# the LM prefill shapes at phase lm-generate's traffic, causal: (b, s, h,
+# kv, dh) of qwen2-vl-7b (GQA group 7), internlm2-1.8b (group 2) and
+# gemma-7b (Dh 256)
+LM_FLASH = {"qwen2-vl-7b": (4, 512, 28, 4, 128),
+            "internlm2-1.8b": (4, 512, 16, 8, 128),
+            "gemma-7b": (4, 512, 16, 16, 256)}
+
+
+def check_flash_lm(gen):
+    """The LM prefill shapes through both routes within the kernel
+    tolerances (bf16 2e-2, f32 2e-5); the qwen2-vl and gemma shapes timed
+    beside the plain version and SDPA (``enable_gqa``), with the kernel's
+    device time per launch and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    out = {}
+    for name, (b, s, h, kv, dh) in LM_FLASH.items():
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            q = torch.randn(b, s, h, dh, generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn(b, s, kv, dh, generator=gen, device="cuda")
+                    .to(dt) for _ in range(2))
+            err = max_err(K.flash_attention(q, k, v, causal=True),
+                          attention_ref(q, k, v, True))
+            if not err <= tol:
+                raise AssertionError(f"flash {name} {(b, s, h, kv, dh)} "
+                                     f"{dt}: err {err} > {tol}")
+            rec = dict(shape=[b, s, s, h, kv, dh], causal=True,
+                       dtype=str(dt).split(".")[-1], max_abs_err=err,
+                       tol=tol)
+            if name != "internlm2-1.8b":
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                rec.update(
+                    ms=median_ms(lambda: K.flash_attention(q, k, v,
+                                                           causal=True)),
+                    device_ms=device_ms(lambda: K.flash_attention(
+                        q, k, v, causal=True))[0],
+                    plain_ms=median_ms(lambda: attention_ref(q, k, v, True)),
+                    library_ms=median_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True)))
+                rec["bound_ms"], rec["bound_by"] = bound_ms(
+                    q.element_size() * 2 * b * s * (h + kv) * dh,
+                    _flash_flops(b, s, s, h, dh, True), rec["dtype"])
+            out[f"{name}/{rec['dtype']}"] = rec
+    return out
 
 
 def _ssd_operands(g, h, lc, n, hd, gen):
@@ -2835,6 +2912,308 @@ def phase_train_denoiser(phase="train-denoiser"):
     return counts
 
 
+# -- lm-generate ----------------------------------------------------------------
+
+# full width and depth, one model at a time; traffic: a batch of prompts
+# from seed 1, then greedy decode steps (``greedy_generate``'s loop)
+LM_FULL = ("gemma-7b", "qwen2-vl-7b", "olmoe-1b-7b")
+LM_REDUCED = ("qwen1.5-0.5b", "qwen1.5-32b", "gemma-7b", "internlm2-1.8b",
+              "qwen2-vl-7b", "olmoe-1b-7b", "qwen2-moe-a2.7b")
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 1024, 64
+LM_REL_L2 = 2e-2      # kernels against plain: the smoke's bf16 bound
+LM_F32_ATOL = 2e-5    # card against CPU, f32 prefill (attention contract)
+# card against CPU, decode: both sides read the bf16 cache to within one ulp,
+# where an f32 k/v rounds to the other neighbour on the card; read at most
+# 5.3e-4 on the H100 (qwen1.5-32b reduced), where an off-by-one decode mask
+# or cache write moves the logits by 0.14 or more
+LM_DECODE_ATOL = 2e-3
+
+
+def _lm_norms_off_one(params, gen):
+    """Draw the norm weights (``init_model`` gives ones) as 1 + 0.1·N in
+    place, so that the kernel and plain paths both read them."""
+    import torch
+    with torch.no_grad():
+        for name, w in params.named_parameters():
+            if name.endswith(("ln1", "ln2", "final_norm")):
+                w.copy_(1.0 + 0.1 * torch.randn(w.shape, generator=gen,
+                                                device=w.device))
+
+
+def lm_launches(cfg):
+    """Kernel launches of one prefill and of one decode step: dense and VLM
+    blocks route ln1, ln2 and (prefill only) attention; the final norm
+    stays plain; MoE blocks take no kernel route (the reference's
+    choice)."""
+    if cfg.family == "moe":
+        none = {"rmsnorm": 0, "flash_attention": 0}
+        return none, dict(none)
+    n = cfg.num_layers
+    return ({"rmsnorm": 2 * n, "flash_attention": n},
+            {"rmsnorm": 2 * n, "flash_attention": 0})
+
+
+def _lm_counts(want, what):
+    from repro_torch.kernels import launch_counts
+    got = launch_counts()
+    if any(got[name] != c for name, c in want.items()):
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    return got
+
+
+def _lm_generate(cfg, params, prompt, steps, counts=None, teacher=None):
+    """Prefill, then ``steps`` greedy decode steps, as ``greedy_generate``
+    runs them. ``teacher`` (tokens [B, steps]) feeds those tokens instead
+    of the argmax. With ``counts`` ({"prefill", "decode"} launches wanted),
+    the kernels' device counters are reset before and read after the
+    prefill and the decode loop, and held to them exactly. Returns the
+    tokens, the last-position logits of the prefill and of every step
+    (f32), the cache right after the prefill (a copy), and per-step ms
+    (CUDA events, the host not waiting inside the loop)."""
+    import torch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serve import make_decode_step, make_prefill
+    prefill = make_prefill(cfg, LM_MAX_LEN)
+    decode = make_decode_step(cfg)
+    total = {"rmsnorm": 0, "flash_attention": 0}
+    with torch.no_grad():
+        if counts:
+            reset_launch_counts()
+        logits, cache = prefill(params, prompt)
+        if counts:
+            got = _lm_counts(counts["prefill"], f"{cfg.name} prefill")
+            total = {n: total[n] + got[n] for n in total}
+        kv = (cache["k"][:, :, :prompt.shape[1]].clone(),
+              cache["v"][:, :, :prompt.shape[1]].clone())
+        last = [logits[:, -1].float()]
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        toks = [tok]
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        if counts:
+            reset_launch_counts()
+        marks[0].record()
+        for i in range(steps):
+            if teacher is not None:
+                tok = teacher[:, i:i + 1]
+            logits, cache = decode(params, tok, cache)
+            marks[i + 1].record()
+            last.append(logits[:, -1].float())
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            toks.append(tok)
+        if counts:
+            got = _lm_counts({n: c * steps for n, c in
+                              counts["decode"].items()},
+                             f"{cfg.name} {steps} decode steps")
+            total = {n: total[n] + got[n] for n in total}
+        torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    return dict(tokens=torch.cat(toks, dim=1), logits=last, kv=kv,
+                step_ms=ms, cache=cache, launches=total)
+
+
+def _lm_decode_profile(cfg, params, cache, tok, steps: int = 8):
+    """Wall, host and device time of ``steps`` decode steps continuing
+    ``cache``: unprofiled first (host clock; host ms is the enqueue before
+    the final synchronize), then a profiler window of as many steps (device
+    kernel time). Idle share = 1 - device / unprofiled wall."""
+    import torch
+    from repro_torch.serve import make_decode_step
+    decode = make_decode_step(cfg)
+    state = {"tok": tok, "cache": cache}
+
+    def run():
+        for _ in range(steps):
+            logits, state["cache"] = decode(params, state["tok"],
+                                            state["cache"])
+            state["tok"] = torch.argmax(logits[:, -1:], dim=-1).to(
+                torch.int32)
+
+    with torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = profiled(run, run)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    wall_ms = wall * 1e3 / steps
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_ms_per_step=wall_ms, host_ms_per_step=host * 1e3 / steps,
+                device_ms_per_step=busy,
+                device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+                kernels_per_step=sum(e.count for e in events) / steps,
+                top_kernels={e.key[:50]: e.self_device_time_total / 1e3
+                             / steps for e in top})
+
+
+def _lm_full(arch):
+    """One full-width model: kernels against plain (teacher-forced),
+    exact launch counts, determinism, times and memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import make_prefill
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch).replace(use_kernels=True)
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, 0, device="cuda")
+    _lm_norms_off_one(params, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    pre, dec = lm_launches(cfg)
+    # the main path: kernels, launches counted
+    run = _lm_generate(cfg, params, prompt, LM_STEPS,
+                       counts={"prefill": pre, "decode": dec})
+    toks = run["tokens"]
+    if tuple(toks.shape) != (LM_BATCH, LM_STEPS + 1) \
+            or not all(bool(torch.isfinite(x).all()) for x in run["logits"]):
+        raise AssertionError(f"{arch}: tokens {tuple(toks.shape)} or "
+                             f"non-finite logits")
+    if not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: token ids out of the vocabulary")
+    # the plain path, fed the kernel path's tokens
+    plain = _lm_generate(cfg.replace(use_kernels=False), params, prompt,
+                         LM_STEPS, teacher=toks[:, :LM_STEPS])
+    errs = [rel_l2(a, b) for a, b in zip(run["logits"], plain["logits"])]
+    top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            for a, b in zip(run["logits"], plain["logits"])]
+    kv_err = max(max_err(a, b) for a, b in zip(run["kv"], plain["kv"]))
+    if not max(errs) <= LM_REL_L2:
+        raise AssertionError(f"{arch}: kernels against plain, relative L2 "
+                             f"{max(errs)} (step {errs.index(max(errs))}) > "
+                             f"{LM_REL_L2}")
+    del plain
+    # determinism: a second kernel-path generation, bitwise
+    again = _lm_generate(cfg, params, prompt, LM_STEPS)
+    if not torch.equal(again["tokens"], toks):
+        raise AssertionError(f"{arch}: a second generation differs")
+    same_logits = all(torch.equal(a, b) for a, b in
+                      zip(run["logits"], again["logits"]))
+    # times: prefill (median of 5), decode (median over the 64 steps), a
+    # profiled decode window continuing the second generation's cache
+    prefill = make_prefill(cfg, LM_MAX_LEN)
+    with torch.no_grad():
+        prefill_ms = median_ms(lambda: prefill(params, prompt), iters=5,
+                               reps=1, warmup=1)
+        pre_events = profiled(lambda: prefill(params, prompt),
+                              lambda: prefill(params, prompt))
+    pre_busy = sum(e.self_device_time_total for e in pre_events) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in pre_events
+                   if "flash_fwd" in e.key) / 1e3
+    prof = _lm_decode_profile(cfg, params, again["cache"],
+                              again["tokens"][:, -1:])
+    step_ms = run["step_ms"][len(run["step_ms"]) // 2]
+    kv_gb = 2 * cfg.num_layers * LM_BATCH * LM_MAX_LEN * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2 / 1e9
+    rec = dict(
+        arch=arch, family=cfg.family, layers=cfg.num_layers,
+        d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
+        params_b=api.param_count(cfg) / 1e9, param_gb=param_gb,
+        kv_cache_gb=kv_gb, init_s=init_s, init_peak_gb=init_peak_gb,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        batch=LM_BATCH, prompt=LM_PROMPT, max_len=LM_MAX_LEN,
+        decode_steps=LM_STEPS, launches=run["launches"],
+        launches_per_prefill=pre, launches_per_decode_step=dec,
+        prefill_ms=prefill_ms, prefill_device_ms=pre_busy,
+        prefill_flash_device_ms=flash_ms,
+        prefill_top_kernels={e.key[:50]: e.self_device_time_total / 1e3
+                             for e in sorted(pre_events, key=lambda e:
+                                             -e.self_device_time_total)[:6]},
+        decode_ms_per_step=step_ms,
+        decode_tokens_per_s=LM_BATCH * 1e3 / step_ms,
+        decode_ms_min_max=[run["step_ms"][0], run["step_ms"][-1]],
+        rel_l2_vs_plain_prefill=errs[0],
+        rel_l2_vs_plain_decode_max=max(errs[1:]),
+        top1_agreement_prefill=top1[0],
+        top1_agreement_decode=sum(top1[1:]) / LM_STEPS,
+        kv_cache_max_abs_err_vs_plain=kv_err, tokens_bitwise_rerun=True,
+        logits_bitwise_rerun=same_logits,
+        first_tokens=toks[0, :8].tolist(), decode_profile=prof)
+    del params, run, again
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_card_vs_cpu(arch):
+    """The reduced (f32) config: prefill and 8 decode steps on the card with
+    the kernels (f32 flash and rmsnorm routes) against the CPU's plain
+    path, same weights, decode fed the CPU's greedy tokens."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import api
+    from repro_torch.serve import make_decode_step, make_prefill
+    cfg = get_config(arch, reduced=True)
+    cpu_params = api.init_model(cfg, 0, device="cpu")
+    _lm_norms_off_one(cpu_params, torch.Generator().manual_seed(2))
+    gpu_params = copy.deepcopy(cpu_params).to("cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 77),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    pre = lm_launches(cfg)[0]
+    for where, dev, params, uk in (("cpu", "cpu", cpu_params, False),
+                                   ("card", "cuda", gpu_params, True)):
+        c = cfg.replace(use_kernels=uk)
+        toks = out["cpu"]["tokens"] if where == "card" else None
+        with torch.no_grad():
+            if where == "card":
+                reset_launch_counts()
+            logits, cache = make_prefill(c, 96)(params, prompt.to(dev))
+            if where == "card":
+                _lm_counts(pre, f"{arch} reduced prefill")
+            res = {"logits": [logits.cpu()], "tokens": []}
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            for i in range(8):
+                if toks is not None:
+                    tok = toks[i].to(dev)
+                res["tokens"].append(tok.cpu())
+                logits, cache = make_decode_step(c)(params, tok, cache)
+                res["logits"].append(logits.cpu())
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+        out[where] = res
+    a, b = out["card"]["logits"], out["cpu"]["logits"]
+    pre_err = max_err(a[0], b[0])
+    if not pre_err <= LM_F32_ATOL:
+        raise AssertionError(f"{arch} reduced: prefill card vs cpu {pre_err}")
+    for x, y in zip(a[1:], b[1:]):
+        torch.testing.assert_close(x, y, rtol=0, atol=LM_DECODE_ATOL)
+    return dict(prefill_max_abs_err=pre_err,
+                decode_max_abs_err=max(max_err(x, y)
+                                       for x, y in zip(a[1:], b[1:])))
+
+
+def phase_lm_generate(phase="lm-generate"):
+    """LM serving through ``repro_torch.serve``'s prefill and KV-cache
+    decode at full width and depth (``gemma-7b``, ``qwen2-vl-7b``,
+    ``olmoe-1b-7b``; random bf16 weights from seed 0), then every reduced
+    LM config card against CPU in f32."""
+    counts = {"rmsnorm": 0, "flash_attention": 0}
+    for arch in LM_FULL:
+        t0 = time.perf_counter()
+        rec = _lm_full(arch)
+        counts = {n: counts[n] + rec["launches"][n] for n in counts}
+        emit(phase, card=CARD[0], seconds=time.perf_counter() - t0, **rec)
+    t0 = time.perf_counter()
+    reduced = {arch: _lm_card_vs_cpu(arch) for arch in LM_REDUCED}
+    emit(phase + "/card-vs-cpu", card=CARD[0], prefill_atol=LM_F32_ATOL,
+         decode_atol=LM_DECODE_ATOL, configs=reduced,
+         seconds=time.perf_counter() - t0)
+    return {name: counts.get(name, 0) for name in SOURCES}
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {
@@ -2866,7 +3245,8 @@ SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                  "stream-loop": {"fused_step_rectify", "rmsnorm",
                                  "flash_attention", "device_loop"},
                  "baselines": {"rmsnorm", "flash_attention"},
-                 "train-denoiser": {"rmsnorm", "flash_attention"}}
+                 "train-denoiser": {"rmsnorm", "flash_attention"},
+                 "lm-generate": {"rmsnorm", "flash_attention"}}
 
 
 def main(argv=None) -> int:
@@ -2940,13 +3320,15 @@ def main(argv=None) -> int:
         if drift_phase == "hybrid-drift" and drift_phase in phases:
             phase_hybrid_f32()
             torch.cuda.empty_cache()
-    if "train-denoiser" in phases:
-        counts = phase_train_denoiser()
-        missing = [n for n in SERVE_KERNELS["train-denoiser"]
-                   if not counts[n]]
+    for path, run in (("train-denoiser", phase_train_denoiser),
+                      ("lm-generate", phase_lm_generate)):
+        if path not in phases:
+            continue
+        counts = run()
+        missing = [n for n in SERVE_KERNELS[path] if not counts[n]]
         if missing:
             raise AssertionError(f"kernels never launched on the "
-                                 f"train-denoiser path: {missing}")
+                                 f"{path} path: {missing}")
         launches = {n: launches[n] + counts[n] for n in launches}
     kernels = []
     for name, (src, replaces) in SOURCES.items():

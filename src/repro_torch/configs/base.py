@@ -20,9 +20,15 @@ class ModelConfig:
     qkv_bias: bool = False
     act: str = "swiglu"  # swiglu | geglu
     rope_theta: float = 10_000.0
-    mrope_sections: tuple = ()
+    mrope_sections: tuple = ()  # qwen2-vl M-RoPE (t,h,w) sections of head_dim/2
+    emb_scale: bool = False  # gemma: scale embeddings by sqrt(d_model)
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
+    # MoE
+    num_experts: int = 0
+    experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_capacity_factor: float = 1.25
     # SSM (mamba2 / zamba2)
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -30,6 +36,8 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 256
     attn_every: int = 0  # zamba2: shared attention block cadence
+    # modality frontend stub (vlm): accepts precomputed embeddings
+    embeds_input: bool = False
     # numerics: backbone weights are stored in param_dtype (see
     # diffusion.wrapper.init_wrapper), activations run in compute_dtype
     param_dtype: str = "bfloat16"
@@ -67,9 +75,8 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     table = _REDUCED if reduced else _REGISTRY
     if name not in table:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(table)} "
-                       f"(the port registers the denoiser backbones only: "
-                       f"the paper-native DiT and the zamba2 hybrid; LM "
-                       f"families: ROADMAP.md queue 1 item 13)")
+                       f"(xlstm-1.3b and seamless-m4t-medium are not ported "
+                       f"yet: ROADMAP.md queue 1 item 13)")
     return table[name]()
 
 

@@ -38,6 +38,12 @@ def spec(shape, axes, init: str = "fan_in", scale: float = 1.0) -> ParamSpec:
     return ParamSpec(tuple(int(s) for s in shape), tuple(axes), init, scale)
 
 
+def count_params(specs: Tree) -> int:
+    if isinstance(specs, ParamSpec):
+        return math.prod(specs.shape)
+    return sum(count_params(v) for v in specs.values())
+
+
 def _trunc_normal(shape, std, gen, device):
     """N(0, std^2) truncated to +-2 std, by inverse-CDF of a uniform draw
     (f32 on ``device``)."""

@@ -66,6 +66,7 @@ def _entry_points():
                                   srds_sample, uniform_tgrid)
     from repro_torch.diffusion import init_wrapper
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import api, dense
     from repro_torch.serve import (ChordsEngine, ContinuousEngine,
                                    StreamingSampler)
     tg = uniform_tgrid(4)
@@ -90,6 +91,10 @@ def _entry_points():
             drift, torch.zeros(2), tg, method="heun"),
         "GaussianMixture.random": lambda: GaussianMixture.random(
             torch.Generator()),
+        "api.init_model": lambda: api.init_model(
+            get_config("qwen1.5-0.5b", reduced=True)),
+        "dense.init_cache": lambda: dense.init_cache(
+            get_config("qwen1.5-0.5b", reduced=True), 1, 8),
     }
 
 
@@ -98,7 +103,8 @@ def _entry_points():
                                   "init_wrapper", "launch.serve",
                                   "paradigms_sample", "srds_sample",
                                   "sequential_sample(heun)",
-                                  "GaussianMixture.random"])
+                                  "GaussianMixture.random", "api.init_model",
+                                  "dense.init_cache"])
 def test_entry_point_defaults_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the CUDA default is valid here")
@@ -109,7 +115,8 @@ def test_entry_point_defaults_to_cuda(name):
 @pytest.mark.parametrize("script,args", [
     ("torch_quickstart.py", []),
     ("torch_train_denoiser.py", ["--steps", "1"]),
-    ("torch_serve_diffusion.py", ["--requests", "1"])])
+    ("torch_serve_diffusion.py", ["--requests", "1"]),
+    ("torch_lm_generate.py", ["--gen-steps", "2"])])
 def test_examples_default_to_cuda(script, args):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the CUDA default is valid here")
@@ -163,3 +170,26 @@ def test_obs_cli_checks_a_trace_with_jax_unimportable(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "obs check: OK" in proc.stdout
+
+
+def test_lm_slice_imports_no_jax():
+    """``repro_torch.serve.steps``, ``repro_torch.models.moe`` and
+    ``examples/torch_lm_generate.py`` import in a process where importing
+    ``jax`` or ``repro`` fails, and leave both out of ``sys.modules``."""
+    code = (
+        "import importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.serve.steps, repro_torch.models.moe\n"
+        "spec = importlib.util.spec_from_file_location('ex', "
+        f"{str(ROOT / 'examples' / 'torch_lm_generate.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.startswith(('jax.', "
+        "'repro.')))\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert {"repro_torch.serve.steps", "repro_torch.models.moe"} <= \
+        set(_port_modules())

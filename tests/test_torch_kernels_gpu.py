@@ -642,3 +642,70 @@ def test_drift_rows_do_not_depend_on_the_grid(cuda):
         alone = drift(x[:8], t[:8])
         for s in (2, 4):
             assert torch.equal(drift(x[:8 * s], t[:8 * s])[:8], alone), s
+
+
+# -- LM serving: prefill and KV-cache decode with the kernels ---------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "internlm2-1.8b",
+                                  "gemma-7b"])
+def test_lm_prefill_and_decode_kernels_vs_plain(cuda, arch):
+    """The three flash LM prefill shapes (causal; GQA group 7, group 2, Dh
+    256) through the served path: the published attention widths, 2
+    layers, a cut FFN and vocabulary, bf16, batch 4 of 512 tokens. Prefill
+    and 4 decode steps (teacher-forced) with the kernels against the plain
+    path, the norm weights drawn off 1: last-position logits within
+    relative L2 2e-2 (the bf16 bound of the smoke); launches exact (2 rmsnorm and 1 flash a layer a prefill,
+    none with the plain path)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import make_decode_step, make_prefill
+    cfg = get_config(arch).replace(num_layers=2, d_ff=1024, vocab_size=4096)
+    params = api.init_model(cfg, cuda, device="cuda")
+    for name, w in params.named_parameters():   # norms drawn off 1
+        if name.endswith(("ln1", "ln2", "final_norm")):
+            w.copy_(1.0 + 0.1 * torch.randn(w.shape, generator=cuda,
+                                            device="cuda"))
+    prompt = torch.randint(0, cfg.vocab_size, (4, 512), generator=cuda,
+                           device="cuda")
+    runs = {}
+    for uk in (True, False):
+        c = cfg.replace(use_kernels=uk)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            logits, cache = make_prefill(c, 520)(params, prompt)
+            counts = kernels.launch_counts()
+            last = [logits[:, -1].float()]
+            toks = runs[True]["toks"] if not uk else \
+                torch.randint(0, cfg.vocab_size, (4, 4), generator=cuda,
+                              device="cuda")
+            for i in range(4):
+                logits, cache = make_decode_step(c)(params, toks[:, i:i + 1],
+                                                    cache)
+                last.append(logits[:, -1].float())
+        runs[uk] = {"last": last, "toks": toks, "counts": counts}
+    assert runs[True]["counts"]["rmsnorm"] == 4
+    assert runs[True]["counts"]["flash_attention"] == 2
+    assert runs[False]["counts"]["flash_attention"] == 0
+    for a, b in zip(runs[True]["last"], runs[False]["last"]):
+        assert float((a - b).norm() / b.norm()) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_moe_combine_bitwise_on_a_rerun(cuda):
+    """The MoE layer at olmoe's published widths (64 experts, top-8), bf16,
+    2048 tokens: bitwise the same on reruns on the card. Its combine adds a
+    token's k outputs in one fixed order, where a bf16 ``index_add_`` is
+    atomic and its sums change between runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.utils.pspec import init_params
+    cfg = get_config("olmoe-1b-7b")
+    p = init_params(moe.moe_specs(cfg), cuda, torch.bfloat16, device="cuda")
+    x = torch.randn(4, 512, cfg.d_model, generator=cuda,
+                    device="cuda").bfloat16()
+    with torch.no_grad():
+        first = moe.moe_ffn(p, cfg, x)
+        for _ in range(4):
+            assert torch.equal(moe.moe_ffn(p, cfg, x), first)
