@@ -20,7 +20,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               head dim through both routes (bf16: the tensor-core kernel,
               f32: the CUDA-core kernel), ``ssd_chunk`` also at H 1, 3
               and 80 with Lc 1, 64, 100 and 256; rmsnorm through both
-              variants and at the three served widths beside
+              variants and at the served shapes beside
               ``F.rms_norm``, as wrapper time and as device time per call
               (profiler); the accept kernel's sums bitwise equal between
               launches and to its summation order emulated in plain torch,
@@ -115,23 +115,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (loss finite and falling, s a step, peak memory); (c) one f32
               train step of the micro config, card against CPU;
 18. lm-generate — LM serving through ``repro_torch.serve``'s prefill and
-              KV-cache greedy decode at full width and depth
-              (``gemma-7b``, ``qwen2-vl-7b``, ``olmoe-1b-7b``, one at a
-              time; random bf16 weights from seed 0, the norm weights
-              drawn off 1; batch 4, prompts of 512 ids from seed 1,
+              KV-cache (xLSTM: recurrent-state) greedy decode at full
+              width and depth (``gemma-7b``, ``qwen2-vl-7b``,
+              ``olmoe-1b-7b``, ``zamba2-2.7b``, ``xlstm-1.3b``,
+              ``seamless-m4t-medium``, one at a time; random bf16 weights
+              from seed 0, the norm weights drawn off 1; batch 4, prompts
+              of 512 ids from seed 1, enc-dec source frames [4, 64, D],
               ``max_len`` 1024, 64 decode steps):
               kernels against plain, teacher-forced, within relative L2
               2e-2 on every step's logits (top-1 agreement reported),
-              launches exact (2·L rmsnorm and L flash a prefill, 2·L
-              rmsnorm a decode step, none for the MoE), tokens bitwise on a
-              second run; ms a prefill (and its device time by kernel), ms
-              a decode step, tokens/s, host ms and device idle share a
-              step (profiler), memory; then the seven reduced LM configs
-              card (kernels, f32) against CPU: prefill 2e-5, decode 2e-3
-              (both read the bf16 cache). The kernels phase adds the LM
-              prefill shapes to flash's sweep (causal GQA group 7 and 2,
-              Dh 256), timed beside SDPA, and the LM rmsnorm shapes to
-              rmsnorm's.
+              launches exact (dense/VLM 2·L rmsnorm and L flash a prefill,
+              2·L rmsnorm a decode step; the hybrid 82 rmsnorm, 9 flash
+              and 54 ``ssd_chunk`` a prefill, 27 rmsnorm a decode step;
+              none for MoE, xLSTM and enc-dec), tokens and logits bitwise
+              on a second run; ms a prefill (and its device time by
+              kernel), ms a decode step, tokens/s, host ms and device idle
+              share a step (profiler), memory, the cache's dtypes; then
+              the ten reduced LM configs card (kernels, f32) against CPU:
+              prefill 2e-5, decode 2e-3 (both read the bf16 cache). The
+              kernels phase adds the LM prefill shapes to flash's sweep
+              (causal GQA group 7 and 2, Dh 256, the hybrid's Dh 80) and
+              ``ssd_chunk``'s (G 8, Lc 256), timed beside SDPA (flash),
+              and the LM rmsnorm shapes to rmsnorm's (the hybrid's decode
+              rows timed beside ``F.rms_norm``).
 
 On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
 unless a phase asks for the eager programs. Launch counts are taken by the
@@ -220,15 +226,18 @@ def _prime():
     torch.cuda.synchronize()
 
 
-def profiled(warm, body, raw: bool = False):
+def profiled(warm, body, raw: bool = False, cpu: bool = True):
     """``warm()`` in a warm-up window, then ``body()`` in the recorded one,
     each followed by a synchronize, under ``torch.profiler``; the recorded
     window opens with ``PRIME_LAUNCHES`` primer launches, then the host
     waits ``GAP_S``, and again before the window closes. Returns the device
-    events of ``body`` (``raw``: the profiler itself)."""
+    events of ``body`` (``raw``: the profiler itself). ``cpu=False``
+    records the device activity only: a window of tens of thousands of
+    eager launches then takes seconds, not a minute, to read."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         warm()
         torch.cuda.synchronize()
@@ -482,8 +491,10 @@ def check_rectify(gen, records):
 
 
 # rmsnorm at the served widths: the DiT's 3072, the hybrid's 2560 and the
-# 5120 of its shared block's ln_in (concat(h, h0)); 2048 rows = S*K*64
-RMSNORM_SERVING = ((2048, 3072), (2048, 2560), (2048, 5120))
+# 5120 of its shared block's ln_in (concat(h, h0)); 2048 rows = S*K*64,
+# also the hybrid LM's prefill (batch 4 x 512); 4 rows: its decode step
+RMSNORM_SERVING = ((2048, 3072), (2048, 2560), (2048, 5120), (4, 2560),
+                   (4, 5120))
 
 
 def check_rmsnorm(gen, records):
@@ -517,7 +528,14 @@ def check_rmsnorm(gen, records):
                                      (4, 3072, bf, bf, 0),
                                      (4, 3584, bf, bf, 0),
                                      (154, 64, f32, f32, 0),
-                                     (2, 64, f32, f32, 0)):
+                                     (2, 64, f32, f32, 0),
+                                     # the hybrid LM's decode step (bf16
+                                     # at full width; its reduced f32
+                                     # config, prompt 80, ln_in at 128)
+                                     (4, 2560, bf, bf, 0),
+                                     (4, 5120, bf, bf, 0),
+                                     (160, 128, f32, f32, 0),
+                                     (2, 128, f32, f32, 0)):
         tol = 1e-5 if dt == f32 else 5e-2
         flat = torch.randn(rows * d + offset, generator=gen, device="cuda")
         x = flat.to(dt)[offset:].view(rows, d)   # offset 1: not 16-aligned
@@ -671,18 +689,19 @@ def check_flash(gen, records):
 
 
 # the LM prefill shapes at phase lm-generate's traffic, causal: (b, s, h,
-# kv, dh) of qwen2-vl-7b (GQA group 7), internlm2-1.8b (group 2) and
-# gemma-7b (Dh 256)
+# kv, dh) of qwen2-vl-7b (GQA group 7), internlm2-1.8b (group 2), gemma-7b
+# (Dh 256) and zamba2-2.7b's shared block (Dh 80)
 LM_FLASH = {"qwen2-vl-7b": (4, 512, 28, 4, 128),
             "internlm2-1.8b": (4, 512, 16, 8, 128),
-            "gemma-7b": (4, 512, 16, 16, 256)}
+            "gemma-7b": (4, 512, 16, 16, 256),
+            "zamba2-2.7b": (4, 512, 32, 32, 80)}
 
 
 def check_flash_lm(gen):
     """The LM prefill shapes through both routes within the kernel
-    tolerances (bf16 2e-2, f32 2e-5); the qwen2-vl and gemma shapes timed
-    beside the plain version and SDPA (``enable_gqa``), with the kernel's
-    device time per launch and the bound."""
+    tolerances (bf16 2e-2, f32 2e-5); the qwen2-vl, gemma and zamba2
+    shapes timed beside the plain version and SDPA (``enable_gqa``), with
+    the kernel's device time per launch and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -759,6 +778,7 @@ def check_ssd(gen, records):
               ((3, 1, 64, 32, 8), "sweep"),
               ((32, 80, 64, 64, 64), "serving"),
               ((4, 80, 256, 64, 64), "full chunk"),
+              ((8, 80, 256, 64, 64), "lm prefill"),
               ((3, 4, 100, 16, 16), "tail")]
     # head groups down to one head (H = 1), a group the launcher's pick
     # need not divide (H = 3), and Lc from one row to a full chunk
@@ -781,21 +801,27 @@ def check_ssd(gen, records):
             case[name] = {"max_abs_err": err, "max_abs_ref": scale,
                           "tol": tol}
         cases.append(case)
-    shape = (32, 80, 64, 64, 64)
-    ops = _ssd_operands(*shape, gen)
-    ms = median_ms(lambda: K.ssd_chunk(*ops))
-    plain = median_ms(lambda: ssd_chunk_batched_ref(*ops))
-    nbytes, flops = _ssd_cost(*shape)
-    bms, by = bound_ms(nbytes, flops, "float32")
-    err = max(max_err(o, r) for o, r in zip(K.ssd_chunk(*ops),
-                                            ssd_chunk_batched_ref(*ops)))
-    # no single PyTorch call computes this function: library_ms is null
-    records["ssd_chunk"] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
-                                bound_by=by, library_ms=None,
-                                max_abs_err=err, shape=list(shape))
-    emit("kernels/ssd_chunk", cases=cases,
-         bound={"bytes": nbytes, "flops": flops, "launches_per_round": 54,
-                "round_bound_ms": 54 * bms})
+    timed = {}
+    # the denoiser's round (G = S*K*64 / 64 = 32 chunks of 64) and the
+    # hybrid LM's prefill (batch 4 x 512 = 8 chunks of 256), 54 launches
+    # each
+    for kind, shape in (("serving", (32, 80, 64, 64, 64)),
+                        ("lm prefill", (8, 80, 256, 64, 64))):
+        ops = _ssd_operands(*shape, gen)
+        ms = median_ms(lambda: K.ssd_chunk(*ops))
+        plain = median_ms(lambda: ssd_chunk_batched_ref(*ops))
+        nbytes, flops = _ssd_cost(*shape)
+        bms, by = bound_ms(nbytes, flops, "float32")
+        err = max(max_err(o, r) for o, r in zip(K.ssd_chunk(*ops),
+                                                ssd_chunk_batched_ref(*ops)))
+        # no single PyTorch call computes this function: library_ms is null
+        timed[kind] = dict(
+            ms=ms, device_ms=device_ms(lambda: K.ssd_chunk(*ops))[0],
+            plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+            max_abs_err=err, shape=list(shape), bytes=nbytes, flops=flops,
+            launches_per_call=54, call_bound_ms=54 * bms)
+    records["ssd_chunk"] = timed["serving"]
+    emit("kernels/ssd_chunk", cases=cases, timed=timed)
 
 
 def check_device_loop(gen, records):
@@ -2916,9 +2942,15 @@ def phase_train_denoiser(phase="train-denoiser"):
 
 # full width and depth, one model at a time; traffic: a batch of prompts
 # from seed 1, then greedy decode steps (``greedy_generate``'s loop)
-LM_FULL = ("gemma-7b", "qwen2-vl-7b", "olmoe-1b-7b")
+LM_FULL = ("gemma-7b", "qwen2-vl-7b", "olmoe-1b-7b", "zamba2-2.7b",
+           "xlstm-1.3b", "seamless-m4t-medium")
 LM_REDUCED = ("qwen1.5-0.5b", "qwen1.5-32b", "gemma-7b", "internlm2-1.8b",
-              "qwen2-vl-7b", "olmoe-1b-7b", "qwen2-moe-a2.7b")
+              "qwen2-vl-7b", "olmoe-1b-7b", "qwen2-moe-a2.7b", "zamba2-2.7b",
+              "xlstm-1.3b", "seamless-m4t-medium")
+LM_KERNELS = ("rmsnorm", "flash_attention", "ssd_chunk")
+# the norm weights of every LM family (``init_model`` draws them as ones)
+LM_NORMS = ("ln", "ln_in", "ln1", "ln2", "ln_x", "gate_norm", "out_norm",
+            "final_norm", "enc_norm")
 LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 1024, 64
 LM_REL_L2 = 2e-2      # kernels against plain: the smoke's bf16 bound
 LM_F32_ATOL = 2e-5    # card against CPU, f32 prefill (attention contract)
@@ -2935,22 +2967,49 @@ def _lm_norms_off_one(params, gen):
     import torch
     with torch.no_grad():
         for name, w in params.named_parameters():
-            if name.endswith(("ln1", "ln2", "final_norm")):
+            if name.rsplit(".", 1)[-1] in LM_NORMS:
                 w.copy_(1.0 + 0.1 * torch.randn(w.shape, generator=gen,
                                                 device=w.device))
 
 
 def lm_launches(cfg):
     """Kernel launches of one prefill and of one decode step: dense and VLM
-    blocks route ln1, ln2 and (prefill only) attention; the final norm
-    stays plain; MoE blocks take no kernel route (the reference's
-    choice)."""
-    if cfg.family == "moe":
-        none = {"rmsnorm": 0, "flash_attention": 0}
-        return none, dict(none)
+    blocks route ln1, ln2 and (prefill only) attention, the final norm
+    stays plain; the hybrid's prefill routes every norm (L Mamba, 3 a
+    shared-block call, the final one), the shared block's attention (one
+    call every ``attn_every`` layers) and ``ssd_chunk`` in every layer,
+    its decode step only the shared block's 3 norms; MoE, xLSTM and
+    enc-dec take no kernel route (the reference's choice)."""
     n = cfg.num_layers
-    return ({"rmsnorm": 2 * n, "flash_attention": n},
-            {"rmsnorm": 2 * n, "flash_attention": 0})
+    none = dict.fromkeys(LM_KERNELS, 0)
+    if cfg.family in ("dense", "vlm"):
+        return (dict(none, rmsnorm=2 * n, flash_attention=n),
+                dict(none, rmsnorm=2 * n))
+    if cfg.family == "hybrid":
+        g = n // cfg.attn_every
+        return (dict(rmsnorm=n + 3 * g + 1, flash_attention=g, ssd_chunk=n),
+                dict(none, rmsnorm=3 * g))
+    return none, dict(none)
+
+
+def lm_source(cfg, batch, s, gen, device):
+    """Enc-dec's source frames [batch, s // src_ratio, D] in the compute
+    dtype (``src/repro/launch/specs.py``'s stub length), as a tuple of
+    prefill arguments; empty for the other families."""
+    import torch
+    if cfg.family not in ("encdec", "audio"):
+        return ()
+    return (torch.randn(batch, s // cfg.src_ratio, cfg.d_model,
+                        generator=gen, device=device).to(
+                            getattr(torch, cfg.compute_dtype)),)
+
+
+def lm_prompt_len(cfg, s):
+    """The recurrent trunks (hybrid, xLSTM) take whole chunks: ``s``
+    rounded up to ``ssm_chunk``."""
+    if cfg.family in ("hybrid", "ssm"):
+        return -(-s // cfg.ssm_chunk) * cfg.ssm_chunk
+    return s
 
 
 def _lm_counts(want, what):
@@ -2961,30 +3020,38 @@ def _lm_counts(want, what):
     return got
 
 
-def _lm_generate(cfg, params, prompt, steps, counts=None, teacher=None):
+def _cache_copy(cache, s):
+    """A copy of the cache's device leaves, the k/v caches cut to their
+    first ``s`` positions."""
+    return {k: (v[:, :, :s] if k in ("k", "v") else v).clone()
+            for k, v in cache.items() if k != "len"}
+
+
+def _lm_generate(cfg, params, prompt, steps, counts=None, teacher=None,
+                 src=()):
     """Prefill, then ``steps`` greedy decode steps, as ``greedy_generate``
-    runs them. ``teacher`` (tokens [B, steps]) feeds those tokens instead
-    of the argmax. With ``counts`` ({"prefill", "decode"} launches wanted),
-    the kernels' device counters are reset before and read after the
-    prefill and the decode loop, and held to them exactly. Returns the
-    tokens, the last-position logits of the prefill and of every step
-    (f32), the cache right after the prefill (a copy), and per-step ms
-    (CUDA events, the host not waiting inside the loop)."""
+    runs them (enc-dec's prefill also takes ``src``, its source frames).
+    ``teacher`` (tokens [B, steps]) feeds those tokens instead of the
+    argmax. With ``counts`` ({"prefill", "decode"} launches wanted), the
+    kernels' device counters are reset before and read after the prefill
+    and the decode loop, and held to them exactly. Returns the tokens, the
+    last-position logits of the prefill and of every step (f32), the
+    cache right after the prefill (a copy), and per-step ms (CUDA events,
+    the host not waiting inside the loop)."""
     import torch
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.serve import make_decode_step, make_prefill
     prefill = make_prefill(cfg, LM_MAX_LEN)
     decode = make_decode_step(cfg)
-    total = {"rmsnorm": 0, "flash_attention": 0}
+    total = dict.fromkeys(LM_KERNELS, 0)
     with torch.no_grad():
         if counts:
             reset_launch_counts()
-        logits, cache = prefill(params, prompt)
+        logits, cache = prefill(params, prompt, *src)
         if counts:
             got = _lm_counts(counts["prefill"], f"{cfg.name} prefill")
             total = {n: total[n] + got[n] for n in total}
-        kv = (cache["k"][:, :, :prompt.shape[1]].clone(),
-              cache["v"][:, :, :prompt.shape[1]].clone())
+        kv = _cache_copy(cache, prompt.shape[1])
         last = [logits[:, -1].float()]
         tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         toks = [tok]
@@ -3037,7 +3104,7 @@ def _lm_decode_profile(cfg, params, cache, tok, steps: int = 8):
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        events = profiled(run, run)
+        events = profiled(run, run, cpu=False)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
     wall_ms = wall * 1e3 / steps
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
@@ -3071,10 +3138,12 @@ def _lm_full(arch):
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                            generator=gen, device="cuda")
+    src = lm_source(cfg, LM_BATCH, LM_PROMPT, gen, "cuda")
     pre, dec = lm_launches(cfg)
+    marks = [time.perf_counter()]  # seconds of the parts of this check
     # the main path: kernels, launches counted
     run = _lm_generate(cfg, params, prompt, LM_STEPS,
-                       counts={"prefill": pre, "decode": dec})
+                       counts={"prefill": pre, "decode": dec}, src=src)
     toks = run["tokens"]
     if tuple(toks.shape) != (LM_BATCH, LM_STEPS + 1) \
             or not all(bool(torch.isfinite(x).all()) for x in run["logits"]):
@@ -3084,50 +3153,60 @@ def _lm_full(arch):
         raise AssertionError(f"{arch}: token ids out of the vocabulary")
     # the plain path, fed the kernel path's tokens
     plain = _lm_generate(cfg.replace(use_kernels=False), params, prompt,
-                         LM_STEPS, teacher=toks[:, :LM_STEPS])
+                         LM_STEPS, teacher=toks[:, :LM_STEPS], src=src)
     errs = [rel_l2(a, b) for a, b in zip(run["logits"], plain["logits"])]
     top1 = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
             for a, b in zip(run["logits"], plain["logits"])]
-    kv_err = max(max_err(a, b) for a, b in zip(run["kv"], plain["kv"]))
+    kv_err = max(max_err(run["kv"][k], plain["kv"][k]) for k in run["kv"])
     if not max(errs) <= LM_REL_L2:
         raise AssertionError(f"{arch}: kernels against plain, relative L2 "
                              f"{max(errs)} (step {errs.index(max(errs))}) > "
                              f"{LM_REL_L2}")
     del plain
     # determinism: a second kernel-path generation, bitwise
-    again = _lm_generate(cfg, params, prompt, LM_STEPS)
+    again = _lm_generate(cfg, params, prompt, LM_STEPS, src=src)
     if not torch.equal(again["tokens"], toks):
         raise AssertionError(f"{arch}: a second generation differs")
     same_logits = all(torch.equal(a, b) for a, b in
                       zip(run["logits"], again["logits"]))
+    if not same_logits:
+        raise AssertionError(f"{arch}: a second generation's logits differ")
+    marks.append(time.perf_counter())
     # times: prefill (median of 5), decode (median over the 64 steps), a
     # profiled decode window continuing the second generation's cache
     prefill = make_prefill(cfg, LM_MAX_LEN)
     with torch.no_grad():
-        prefill_ms = median_ms(lambda: prefill(params, prompt), iters=5,
-                               reps=1, warmup=1)
-        pre_events = profiled(lambda: prefill(params, prompt),
-                              lambda: prefill(params, prompt))
+        prefill_ms = median_ms(lambda: prefill(params, prompt, *src),
+                               iters=5, reps=1, warmup=1)
+        pre_events = profiled(lambda: prefill(params, prompt, *src),
+                              lambda: prefill(params, prompt, *src),
+                              cpu=False)
     pre_busy = sum(e.self_device_time_total for e in pre_events) / 1e3
     flash_ms = sum(e.self_device_time_total for e in pre_events
                    if "flash_fwd" in e.key) / 1e3
+    ssd_ms = sum(e.self_device_time_total for e in pre_events
+                 if "ssd_chunk" in e.key) / 1e3
+    marks.append(time.perf_counter())
     prof = _lm_decode_profile(cfg, params, again["cache"],
                               again["tokens"][:, -1:])
+    marks.append(time.perf_counter())
     step_ms = run["step_ms"][len(run["step_ms"]) // 2]
-    kv_gb = 2 * cfg.num_layers * LM_BATCH * LM_MAX_LEN * cfg.num_kv_heads \
-        * cfg.resolved_head_dim * 2 / 1e9
+    cache_gb = sum(t.numel() * t.element_size() for k, t in
+                   again["cache"].items() if k != "len") / 1e9
     rec = dict(
         arch=arch, family=cfg.family, layers=cfg.num_layers,
         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
         params_b=api.param_count(cfg) / 1e9, param_gb=param_gb,
-        kv_cache_gb=kv_gb, init_s=init_s, init_peak_gb=init_peak_gb,
+        cache_gb=cache_gb, init_s=init_s, init_peak_gb=init_peak_gb,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         batch=LM_BATCH, prompt=LM_PROMPT, max_len=LM_MAX_LEN,
         decode_steps=LM_STEPS, launches=run["launches"],
         launches_per_prefill=pre, launches_per_decode_step=dec,
         prefill_ms=prefill_ms, prefill_device_ms=pre_busy,
-        prefill_flash_device_ms=flash_ms,
+        prefill_flash_device_ms=flash_ms, prefill_ssd_device_ms=ssd_ms,
+        cache_dtypes={k: str(t.dtype).split(".")[-1]
+                      for k, t in again["cache"].items()},
         prefill_top_kernels={e.key[:50]: e.self_device_time_total / 1e3
                              for e in sorted(pre_events, key=lambda e:
                                              -e.self_device_time_total)[:6]},
@@ -3138,9 +3217,12 @@ def _lm_full(arch):
         rel_l2_vs_plain_decode_max=max(errs[1:]),
         top1_agreement_prefill=top1[0],
         top1_agreement_decode=sum(top1[1:]) / LM_STEPS,
-        kv_cache_max_abs_err_vs_plain=kv_err, tokens_bitwise_rerun=True,
+        cache_max_abs_err_vs_plain=kv_err, tokens_bitwise_rerun=True,
         logits_bitwise_rerun=same_logits,
-        first_tokens=toks[0, :8].tolist(), decode_profile=prof)
+        first_tokens=toks[0, :8].tolist(), decode_profile=prof,
+        seconds_by_part=dict(zip(("three_generations", "prefill_timing",
+                                  "decode_profile"),
+                                 (b - a for a, b in zip(marks, marks[1:])))))
     del params, run, again
     torch.cuda.empty_cache()
     return rec
@@ -3160,8 +3242,10 @@ def _lm_card_vs_cpu(arch):
     cpu_params = api.init_model(cfg, 0, device="cpu")
     _lm_norms_off_one(cpu_params, torch.Generator().manual_seed(2))
     gpu_params = copy.deepcopy(cpu_params).to("cuda")
-    prompt = torch.randint(0, cfg.vocab_size, (2, 77),
-                           generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, lm_prompt_len(cfg, 77)),
+                           generator=gen)
+    src = lm_source(cfg, 2, 77, gen, "cpu")
     out = {}
     pre = lm_launches(cfg)[0]
     for where, dev, params, uk in (("cpu", "cpu", cpu_params, False),
@@ -3171,7 +3255,8 @@ def _lm_card_vs_cpu(arch):
         with torch.no_grad():
             if where == "card":
                 reset_launch_counts()
-            logits, cache = make_prefill(c, 96)(params, prompt.to(dev))
+            logits, cache = make_prefill(c, 96)(
+                params, prompt.to(dev), *(t.to(dev) for t in src))
             if where == "card":
                 _lm_counts(pre, f"{arch} reduced prefill")
             res = {"logits": [logits.cpu()], "tokens": []}
@@ -3196,11 +3281,11 @@ def _lm_card_vs_cpu(arch):
 
 
 def phase_lm_generate(phase="lm-generate"):
-    """LM serving through ``repro_torch.serve``'s prefill and KV-cache
-    decode at full width and depth (``gemma-7b``, ``qwen2-vl-7b``,
-    ``olmoe-1b-7b``; random bf16 weights from seed 0), then every reduced
-    LM config card against CPU in f32."""
-    counts = {"rmsnorm": 0, "flash_attention": 0}
+    """LM serving through ``repro_torch.serve``'s prefill and KV-cache (or
+    recurrent-state) decode at full width and depth (``LM_FULL``: random
+    bf16 weights from seed 0), then every reduced LM config card against
+    CPU in f32."""
+    counts = dict.fromkeys(LM_KERNELS, 0)
     for arch in LM_FULL:
         t0 = time.perf_counter()
         rec = _lm_full(arch)
@@ -3246,7 +3331,7 @@ SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                                  "flash_attention", "device_loop"},
                  "baselines": {"rmsnorm", "flash_attention"},
                  "train-denoiser": {"rmsnorm", "flash_attention"},
-                 "lm-generate": {"rmsnorm", "flash_attention"}}
+                 "lm-generate": {"rmsnorm", "flash_attention", "ssd_chunk"}}
 
 
 def main(argv=None) -> int:

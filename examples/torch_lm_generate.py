@@ -1,32 +1,51 @@
 """LM serving path of the PyTorch/CUDA port: greedy decoding with prefill
-and the KV cache (the generate half of ``examples/lm_generate.py``).
+and the KV cache (or xLSTM's recurrent state) for every LM config the
+reference serves (the generate half of ``examples/lm_generate.py``).
 
   PYTHONPATH=src python examples/torch_lm_generate.py --arch internlm2-1.8b
   PYTHONPATH=src python examples/torch_lm_generate.py --device cpu
+  PYTHONPATH=src python examples/torch_lm_generate.py \
+      --arch seamless-m4t-medium --device cpu
 
 The reduced config with random weights from seed 0 and, as in the
-reference, a [2, 8] prompt; the reference example first trains the model
-for a few steps, which waits for the LM trainer (ROADMAP.md queue 1 item
-11).
+reference, a [2, 8] prompt; enc-dec prefills from zero source frames
+[2, 4, D] and decodes step by step. The reference example first trains the
+model for a few steps, which waits for the LM trainer (ROADMAP.md queue 1
+item 11).
 """
 import argparse
 import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.serve import greedy_generate
+from repro_torch.serve import greedy_generate, make_decode_step, make_prefill
 
-ARCHS = ("qwen1.5-0.5b", "qwen1.5-32b", "gemma-7b", "internlm2-1.8b",
-         "qwen2-vl-7b", "olmoe-1b-7b", "qwen2-moe-a2.7b")
-BATCH, PROMPT_LEN, SEED = 2, 8, 0
+BATCH, PROMPT_LEN, SRC_LEN, SEED = 2, 8, 4, 0
+
+
+def generate_encdec(cfg, params, prompt, steps: int, max_len: int):
+    """Enc-dec greedy tokens [B, S0 + steps] from zero source frames."""
+    src = torch.zeros((prompt.shape[0], SRC_LEN, cfg.d_model),
+                      dtype=getattr(torch, cfg.compute_dtype),
+                      device=prompt.device)
+    with torch.no_grad():
+        logits, cache = make_prefill(cfg, max_len)(params, prompt, src)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        toks = [prompt.to(torch.int32), tok]
+        decode = make_decode_step(cfg)
+        for _ in range(steps - 1):
+            logits, cache = decode(params, tok, cache)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            toks.append(tok)
+    return torch.cat(toks, dim=1)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=ARCHS)
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=ASSIGNED_ARCHS)
     ap.add_argument("--gen-steps", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -42,8 +61,14 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
                            generator=gen, device=dev)
     t0 = time.perf_counter()
-    out = greedy_generate(cfg, params, prompt, steps=args.gen_steps,
-                          max_len=PROMPT_LEN + args.gen_steps)
+    if api.is_encdec(cfg):
+        print(f"[gen] {args.arch} is enc-dec; decoding with zero source "
+              f"memory")
+        out = generate_encdec(cfg, params, prompt, args.gen_steps,
+                              PROMPT_LEN + args.gen_steps)
+    else:
+        out = greedy_generate(cfg, params, prompt, steps=args.gen_steps,
+                              max_len=PROMPT_LEN + args.gen_steps)
     out = out.cpu()
     secs = time.perf_counter() - t0
     print(f"[gen] prompt shape {tuple(prompt.shape)} -> generated "

@@ -36,7 +36,14 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 256
     attn_every: int = 0  # zamba2: shared attention block cadence
-    # modality frontend stub (vlm): accepts precomputed embeddings
+    # xLSTM
+    slstm_every: int = 0  # 1 sLSTM block per this many blocks (rest mLSTM)
+    mlstm_proj_factor: float = 2.0
+    # enc-dec (seamless)
+    enc_layers: int = 0
+    dec_layers: int = 0
+    src_ratio: int = 8  # encoder source length = seq_len // src_ratio
+    # modality frontend stub (vlm / audio): accepts precomputed embeddings
     embeds_input: bool = False
     # numerics: backbone weights are stored in param_dtype (see
     # diffusion.wrapper.init_wrapper), activations run in compute_dtype
@@ -74,9 +81,7 @@ def register(name: str, full: Callable[[], ModelConfig],
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     table = _REDUCED if reduced else _REGISTRY
     if name not in table:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(table)} "
-                       f"(xlstm-1.3b and seamless-m4t-medium are not ported "
-                       f"yet: ROADMAP.md queue 1 item 13)")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(table)}")
     return table[name]()
 
 

@@ -1,11 +1,8 @@
 """Model API by config family — port of ``repro.models.api``: the dense
-trunk (``dense``, and the VLM, which runs on it), ``moe``, and the zamba2
-hybrid as a denoiser trunk.
-
-Families still to port raise ``NotImplementedError`` naming their
-ROADMAP.md item: xLSTM (``ssm``), enc-dec (``encdec``, ``audio``), and the
-hybrid's LM mode (``prefill``, ``decode_step``, its cache), all queue 1
-item 13.
+trunk (``dense``, and the VLM, which runs on it), ``moe``, the zamba2
+hybrid, xLSTM (``ssm``) and enc-dec (``encdec``, ``audio``), each as an LM
+(``prefill``, ``decode_step``, its cache) and as a denoiser trunk
+(:func:`forward_hidden`).
 """
 from __future__ import annotations
 
@@ -13,35 +10,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import dense, moe, zamba2
+from repro_torch.models import dense, encdec, moe, xlstm, zamba2
+from repro_torch.models import layers as L
+from repro_torch.models.dense import _layer, _positions
 from repro_torch.utils import pspec
 
-_FAMILY = {"dense": dense, "vlm": dense, "moe": moe, "hybrid": zamba2}
-_NOT_PORTED = {
-    "ssm": "xLSTM is not ported yet: ROADMAP.md queue 1 item 13",
-    "encdec": "enc-dec is not ported yet: ROADMAP.md queue 1 item 13",
-    "audio": "enc-dec is not ported yet: ROADMAP.md queue 1 item 13",
-}
-_LM_NOT_PORTED = {
-    "hybrid": "the hybrid's LM mode (zamba2 prefill, decode_step, "
-              "cache_specs/init_cache) is not ported yet: ROADMAP.md queue "
-              "1 item 13",
-}
+_FAMILY = {"dense": dense, "vlm": dense, "moe": moe, "hybrid": zamba2,
+           "ssm": xlstm, "encdec": encdec, "audio": encdec}
 
 
 def get_module(cfg: ModelConfig):
     if cfg.family in _FAMILY:
         return _FAMILY[cfg.family]
-    raise NotImplementedError(
-        f"model family {cfg.family!r}: "
-        f"{_NOT_PORTED.get(cfg.family, 'no such family')}")
+    raise NotImplementedError(f"model family {cfg.family!r}: no such "
+                              f"family; known: {sorted(_FAMILY)}")
 
 
 def lm_module(cfg: ModelConfig):
     """The family module's LM entry points (``prefill``, ``decode_step``,
-    ``init_cache``); raises for a family whose LM mode is not ported."""
-    if cfg.family in _LM_NOT_PORTED:
-        raise NotImplementedError(_LM_NOT_PORTED[cfg.family])
+    ``init_cache``)."""
     return get_module(cfg)
 
 
@@ -74,8 +61,25 @@ def is_encdec(cfg: ModelConfig) -> bool:
 
 def forward_hidden(params, cfg: ModelConfig, embeds, **kw):
     """Backbone as a denoiser trunk: embeds in, hidden out (non-causal for
-    the dense trunk). The hybrid's recurrence is causal-only, so, as in the
-    reference, it runs causally whatever ``causal`` the caller passes."""
-    if cfg.family == "hybrid":
+    the dense trunk). The recurrent trunks (hybrid, xLSTM) are causal-only,
+    so, as in the reference, they run causally whatever ``causal`` the
+    caller passes. Enc-dec runs its decoder stack (causal self-attention,
+    cross-attention into ``memory``, zeros [B, 16, D] by default) and a
+    final norm on the kernel route."""
+    if is_encdec(cfg):
+        memory = kw.pop("memory", None)
+        b, s = embeds.shape[:2]
+        if memory is None:
+            memory = torch.zeros((b, 16, cfg.d_model), dtype=embeds.dtype,
+                                 device=embeds.device)
+        pos = _positions(cfg, b, s, device=embeds.device)
+        mem_pos = _positions(cfg, b, memory.shape[1], device=embeds.device)
+        h = embeds
+        for i in range(cfg.dec_layers):
+            h = encdec._dec_block(cfg, _layer(params["dec"], i), h, memory,
+                                  pos, mem_pos, kw.get("attn_impl", "auto"))
+        return L.rmsnorm(h, params["final_norm"], cfg.norm_eps,
+                         use_kernel=cfg.use_kernels)
+    if cfg.family in ("hybrid", "ssm"):
         kw["causal"] = True
     return get_module(cfg).forward_hidden(params, cfg, embeds, **kw)

@@ -142,11 +142,9 @@ def run_prefill(params, cfg: ModelConfig, e, block, max_len):
     return L.unembed(params["embed"], cfg, h), cache
 
 
-def run_decode(params, cfg: ModelConfig, tokens, cache, block):
-    """One decode step of ``dense`` and ``moe`` (``block(p, h, positions,
-    kv, cur)`` per layer): the token at position ``len[0]`` for the whole
-    batch, as in the reference; the cache is updated in place and
-    returned."""
+def decode_position(cache) -> int:
+    """The position a decode step writes: the host ``len``, uniform over
+    the batch as in the reference, and inside the k/v cache."""
     lens = cache["len"].tolist()
     cur = lens[0]
     if any(n != cur for n in lens):
@@ -156,6 +154,15 @@ def run_decode(params, cfg: ModelConfig, tokens, cache, block):
     if cur >= cache["k"].shape[2]:
         raise ValueError(f"decode_step: the cache is full ({cur} of "
                          f"{cache['k'].shape[2]} positions)")
+    return cur
+
+
+def run_decode(params, cfg: ModelConfig, tokens, cache, block):
+    """One decode step of ``dense`` and ``moe`` (``block(p, h, positions,
+    kv, cur)`` per layer): the token at position ``len[0]`` for the whole
+    batch, as in the reference; the cache is updated in place and
+    returned."""
+    cur = decode_position(cache)
     b = tokens.shape[0]
     positions = _positions(cfg, b, 1, offset=cur, device=tokens.device)
     h = L.embed(params["embed"], cfg, tokens)

@@ -94,13 +94,16 @@ def attention_specs(cfg: ModelConfig, layers: Optional[int] = None) -> dict:
     return specs
 
 
-def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None):
-    """x: [B, S, D] -> q [B, S, H, Dh], k/v [B, S, KV, Dh] (RoPE applied;
-    M-RoPE when ``cfg.mrope_sections``, positions then [3, B, S])."""
+def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None, cross_kv=None):
+    """x: [B, S, D] -> q [B, S, H, Dh], k/v [B, Skv, KV, Dh] (RoPE applied;
+    M-RoPE when ``cfg.mrope_sections``, positions then [3, B, S]). With
+    ``cross_kv`` [B, Skv, D] (an encoder's memory) k/v project it and take
+    no rotation."""
     theta = cfg.rope_theta if theta is None else theta
+    src = x if cross_kv is None else cross_kv
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -108,10 +111,12 @@ def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None):
     if positions is not None:
         if cfg.mrope_sections:
             q = apply_mrope(q, positions, theta, cfg.mrope_sections)
-            k = apply_mrope(k, positions, theta, cfg.mrope_sections)
+            if cross_kv is None:
+                k = apply_mrope(k, positions, theta, cfg.mrope_sections)
         else:
             q = apply_rope(q, positions, theta)
-            k = apply_rope(k, positions, theta)
+            if cross_kv is None:
+                k = apply_rope(k, positions, theta)
     return q, k, v
 
 

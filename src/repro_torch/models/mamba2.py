@@ -1,6 +1,6 @@
-"""Mamba2 (SSD) layer — port of ``repro.models.mamba2`` (the chunked
-forward that the denoiser role runs; the O(1) ``ssd_decode_step`` and the
-state/cache specs serve LM decoding: ROADMAP.md queue 1 item 13).
+"""Mamba2 (SSD) layer — port of ``repro.models.mamba2``: the chunked
+forward (the denoiser and LM prefill), the O(1) ``ssd_decode_step`` and
+the per-layer conv/SSM state specs of the hybrid's LM cache.
 
 ``ssd_forward`` has the reference's two arrangements:
 
@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.utils.pspec import spec
@@ -212,3 +213,55 @@ def ssd_forward(p, cfg: ModelConfig, x, conv_state=None, ssm_state=None,
     y = _gated_norm(y, z, p["gate_norm"], cfg.norm_eps)
     out = torch.einsum("bsk,kd->bsd", y, p["out_proj"].to(x.dtype))
     return out, (new_conv, final_state.to(f32))
+
+
+def ssd_decode_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
+    """x: [B, 1, D]; O(1) recurrent update, plain as in the reference.
+    Returns (y, (conv_state, ssm_state)). The conv state comes back in the
+    promoted dtype of (state, x), as ``jnp.concatenate`` gives it: f32
+    from a bf16 state and f32 activations."""
+    bsz = x.shape[0]
+    din, n, h, hd = (d_inner(cfg), cfg.ssm_state, num_ssm_heads(cfg),
+                     cfg.ssm_head_dim)
+    f32 = torch.float32
+    proj = torch.einsum("bsd,dk->bsk", x, p["in_proj"].to(x.dtype))
+    z, xc, b_, c_, dt = _split(cfg, proj)
+    conv_in = torch.cat([xc, b_, c_], dim=-1)  # [B, 1, C]
+    conv_out, new_conv = _depthwise_causal_conv(conv_in,
+                                                p["conv_w"].to(x.dtype),
+                                                conv_state)
+    conv_out = F.silu(conv_out)[:, 0]  # [B, C]
+    xc = conv_out[..., :din].reshape(bsz, h, hd)
+    b_ = conv_out[..., din:din + n].to(f32)
+    c_ = conv_out[..., din + n:].to(f32)
+
+    dt = _softplus(dt[:, 0].to(f32) + p["dt_bias"].to(f32))
+    a = -torch.exp(p["a_log"].to(f32))
+    decay = torch.exp(dt * a[None, :])  # [B, H]
+
+    xdt = xc.to(f32) * dt[..., None]  # [B, H, hd]
+    new_state = decay[:, :, None, None] * ssm_state \
+        + torch.einsum("bhp,bn->bhpn", xdt, b_)
+    y = torch.einsum("bn,bhpn->bhp", c_, new_state)
+    y = y + xc.to(f32) * p["d_skip"].to(f32)[None, :, None]
+    y = y.reshape(bsz, 1, din).to(x.dtype)
+    y = _gated_norm(y, z, p["gate_norm"], cfg.norm_eps)
+    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"].to(x.dtype))
+    return out, (new_conv, new_state)
+
+
+def ssd_state_specs(cfg: ModelConfig, batch, layers: int,
+                    dtype=torch.float32):
+    """The per-layer decode states as ``(shape, dtype)``: conv bf16, SSM
+    in ``dtype``."""
+    din, n, h, hd, w = (d_inner(cfg), cfg.ssm_state, num_ssm_heads(cfg),
+                        cfg.ssm_head_dim, cfg.ssm_conv)
+    return {"conv": ((layers, batch, w - 1, din + 2 * n), torch.bfloat16),
+            "ssm": ((layers, batch, h, hd, n), dtype)}
+
+
+def ssd_init_state(cfg: ModelConfig, batch, layers: int, dtype=torch.float32,
+                   device="cuda"):
+    dev = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt)
+            in ssd_state_specs(cfg, batch, layers, dtype).items()}

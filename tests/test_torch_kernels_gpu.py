@@ -693,6 +693,61 @@ def test_lm_prefill_and_decode_kernels_vs_plain(cuda, arch):
 
 
 @pytest.mark.gpu
+def test_hybrid_lm_prefill_and_decode_kernels_vs_plain(cuda):
+    """The hybrid's LM path at ``zamba2-2.7b``'s published widths cut to
+    one group (6 SSD layers and one shared-block call), vocabulary 4096,
+    bf16, batch 4 of 512 tokens (2 chunks of 256): prefill and 4
+    teacher-forced decode steps with the kernels against the plain path,
+    every norm weight drawn off 1. Last-position logits within relative L2
+    2e-2; launches exact (a prefill: 6 + 3 + 1 rmsnorm, 1 flash, 6
+    ``ssd_chunk``; a decode step: the shared block's 3 rmsnorm); the
+    cache's dtypes those of the reference (``conv`` bf16 at bf16
+    activations, ``ssm`` f32)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import make_decode_step, make_prefill
+    cfg = get_config("zamba2-2.7b").replace(num_layers=6, vocab_size=4096)
+    params = api.init_model(cfg, cuda, device="cuda")
+    for name, w in params.named_parameters():   # norms drawn off 1
+        if name.rsplit(".", 1)[-1] in ("ln", "ln_in", "ln1", "ln2",
+                                       "gate_norm", "final_norm"):
+            w.copy_(1.0 + 0.1 * torch.randn(w.shape, generator=cuda,
+                                            device="cuda"))
+    prompt = torch.randint(0, cfg.vocab_size, (4, 512), generator=cuda,
+                           device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (4, 4), generator=cuda,
+                         device="cuda")
+    runs = {}
+    for uk in (True, False):
+        c = cfg.replace(use_kernels=uk)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            logits, cache = make_prefill(c, 520)(params, prompt)
+            pre = kernels.launch_counts()
+            last = [logits[:, -1].float()]
+            kernels.reset_launch_counts()
+            for i in range(4):
+                logits, cache = make_decode_step(c)(params, toks[:, i:i + 1],
+                                                    cache)
+                last.append(logits[:, -1].float())
+            dec = kernels.launch_counts()
+        runs[uk] = {"last": last, "pre": pre, "dec": dec,
+                    "dtypes": {k: t.dtype for k, t in cache.items()}}
+    want = {True: ((10, 1, 6), (12, 0, 0)), False: ((0, 0, 0), (0, 0, 0))}
+    for uk, (pre, dec) in want.items():
+        got = [tuple(runs[uk][w][n] for n in ("rmsnorm", "flash_attention",
+                                               "ssd_chunk"))
+               for w in ("pre", "dec")]
+        assert got == [pre, dec], (uk, got)
+    assert runs[True]["dtypes"] == {
+        "conv": torch.bfloat16, "ssm": torch.float32, "k": torch.bfloat16,
+        "v": torch.bfloat16, "len": torch.int32}
+    for a, b in zip(runs[True]["last"], runs[False]["last"]):
+        assert float((a - b).norm() / b.norm()) <= 2e-2
+
+
+@pytest.mark.gpu
 def test_moe_combine_bitwise_on_a_rerun(cuda):
     """The MoE layer at olmoe's published widths (64 experts, top-8), bf16,
     2048 tokens: bitwise the same on reruns on the card. Its combine adds a

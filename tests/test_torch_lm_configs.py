@@ -29,9 +29,16 @@ def test_config_equals_jax_field_by_field(arch, reduced):
 
 
 def test_every_lm_arch_is_registered():
-    assert set(LM_ARCHS) <= set(list_archs())
-    with pytest.raises(KeyError, match="item 13"):
-        get_config("xlstm-1.3b")
+    """Every LM config the reference serves is registered, with the same
+    list; an unknown name raises."""
+    from repro.configs import ASSIGNED_ARCHS as J_ASSIGNED
+    from repro_torch.configs import ASSIGNED_ARCHS
+    assert ASSIGNED_ARCHS == J_ASSIGNED
+    assert set(LM_ARCHS) <= set(ASSIGNED_ARCHS) <= set(list_archs())
+    for arch in ASSIGNED_ARCHS:
+        assert api.lm_module(get_config(arch, reduced=True)) is not None
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -62,18 +69,25 @@ def test_load_jax_params_names_match_one_to_one(arch):
                        torch.from_numpy(np.asarray(params["embed"]["tok"])))
 
 
-@pytest.mark.parametrize("family,match", [("ssm", "xLSTM.*item 13"),
-                                          ("encdec", "enc-dec.*item 13"),
-                                          ("audio", "enc-dec.*item 13")])
-def test_unported_families_name_their_item(family, match):
+@pytest.mark.parametrize("family,module", [("ssm", "xlstm"),
+                                           ("encdec", "encdec"),
+                                           ("audio", "encdec")])
+def test_unported_families_name_their_item(family, module):
+    """The families that were still to port now map to their modules, as
+    in the reference's ``_FAMILY``; an unknown family raises."""
+    from repro.models import api as j_api
     cfg = get_config("qwen1.5-0.5b", reduced=True).replace(family=family)
-    with pytest.raises(NotImplementedError, match=match):
-        api.get_module(cfg)
+    assert api.get_module(cfg).__name__ == f"repro_torch.models.{module}"
+    assert j_api.get_module(cfg).__name__ == f"repro.models.{module}"
+    with pytest.raises(NotImplementedError, match="no such family"):
+        api.get_module(cfg.replace(family="nope"))
 
 
 def test_hybrid_lm_mode_names_its_item():
+    """The hybrid's LM mode serves: the steps build on ``zamba2``."""
+    from repro_torch.models import zamba2
     from repro_torch.serve import make_decode_step, make_prefill
     cfg = get_config("zamba2-2.7b", reduced=True)
-    for make in (lambda: make_prefill(cfg, 16), lambda: make_decode_step(cfg)):
-        with pytest.raises(NotImplementedError, match="LM mode.*item 13"):
-            make()
+    assert api.lm_module(cfg) is zamba2
+    assert callable(make_prefill(cfg, 16)) and \
+        callable(make_decode_step(cfg))
