@@ -137,7 +137,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (causal GQA group 7 and 2, Dh 256, the hybrid's Dh 80) and
               ``ssd_chunk``'s (G 8, Lc 256), timed beside SDPA (flash),
               and the LM rmsnorm shapes to rmsnorm's (the hybrid's decode
-              rows timed beside ``F.rms_norm``).
+              rows timed beside ``F.rms_norm``);
+19. lm-train — LM training through ``repro_torch.launch.train``'s path
+              (``elastic_train``, then ``train_loop``) at full width and
+              depth, nothing cut: ``internlm2-1.8b``, random bf16 weights
+              from seed 0, ``DataPipeline(seq_len=512, global_batch=4)``,
+              2 microbatches, remat, the update donated, AdamW (lr 3e-4,
+              warmup 2), 8 steps, no checkpoint: losses finite and
+              falling, zero kernel launches over the train steps, s a
+              step (median of the last 6), tokens/s, peak memory; a train
+              step with the kernels raises (they have no backward); one
+              eval step with the kernels against plain (49 rmsnorm and 24
+              flash launches exactly, loss within 2e-3 relative, logits
+              within 2e-2 relative L2); then one train step's loss and
+              gradients of the six family configs reduced (f32) card
+              against CPU (1e-5, 1e-4 relative L2), the reduced hybrid's
+              eval step with rmsnorm, flash and ``ssd_chunk``, and 3 steps
+              resumed to 6 against 6 on the card, bitwise. The kernels
+              phase holds and times rmsnorm at [2048, 2048] and flash at
+              [4, 512, 16/8, 128] (the eval step's shapes).
 
 On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
 unless a phase asks for the eager programs. Launch counts are taken by the
@@ -164,7 +182,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
           "overlap-serve", "device-loop", "elastic-serve", "lane-serve",
           "stream-loop", "baselines", "ssd", "hybrid-drift", "hybrid-serve",
-          "hybrid-device-loop", "train-denoiser", "lm-generate")
+          "hybrid-device-loop", "train-denoiser", "lm-generate", "lm-train")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -268,13 +286,14 @@ def graph_kernel_nodes(fn) -> int:
     device kernels a call enqueues, counted without the profiler
     (:func:`graph_nodes`)."""
     import torch
+    from repro_torch.serve.graphs import no_gc
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
+    with no_gc(), torch.cuda.graph(g):
         fn()
     kernels = graph_nodes(g.raw_cuda_graph())["types"].get("kernel", 0)
     g.reset()
@@ -494,7 +513,7 @@ def check_rectify(gen, records):
 # 5120 of its shared block's ln_in (concat(h, h0)); 2048 rows = S*K*64,
 # also the hybrid LM's prefill (batch 4 x 512); 4 rows: its decode step
 RMSNORM_SERVING = ((2048, 3072), (2048, 2560), (2048, 5120), (4, 2560),
-                   (4, 5120))
+                   (4, 5120), (2048, 2048))
 
 
 def check_rmsnorm(gen, records):
@@ -535,7 +554,10 @@ def check_rmsnorm(gen, records):
                                      (4, 2560, bf, bf, 0),
                                      (4, 5120, bf, bf, 0),
                                      (160, 128, f32, f32, 0),
-                                     (2, 128, f32, f32, 0)):
+                                     (2, 128, f32, f32, 0),
+                                     # phase lm-train: the internlm2
+                                     # eval step's norms
+                                     (2048, 2048, bf, bf, 0)):
         tol = 1e-5 if dt == f32 else 5e-2
         flat = torch.randn(rows * d + offset, generator=gen, device="cuda")
         x = flat.to(dt)[offset:].view(rows, d)   # offset 1: not 16-aligned
@@ -568,10 +590,11 @@ def check_rmsnorm(gen, records):
                    bound_ms=bms, bound_by=by, bound_share=bms / dev,
                    wrapper_within_library=ms <= lib,
                    plan=K.plan(d, torch.bfloat16, True)._asdict())
-        if (rows, d) == RMSNORM_SERVING[0]:
+        if (rows, d) in (RMSNORM_SERVING[0], (2048, 2048)):
             rec.update(plain_ms=median_ms(lambda: rmsnorm_ref(x, w)),
                        max_abs_err=max_err(K.rmsnorm(x, w),
                                            rmsnorm_ref(x, w)))
+        if (rows, d) == RMSNORM_SERVING[0]:
             records["rmsnorm"] = rec
         emit("kernels/rmsnorm-timing", **rec)
 
@@ -689,8 +712,9 @@ def check_flash(gen, records):
 
 
 # the LM prefill shapes at phase lm-generate's traffic, causal: (b, s, h,
-# kv, dh) of qwen2-vl-7b (GQA group 7), internlm2-1.8b (group 2), gemma-7b
-# (Dh 256) and zamba2-2.7b's shared block (Dh 80)
+# kv, dh) of qwen2-vl-7b (GQA group 7), internlm2-1.8b (group 2: phase
+# lm-train's eval step), gemma-7b (Dh 256) and zamba2-2.7b's shared block
+# (Dh 80)
 LM_FLASH = {"qwen2-vl-7b": (4, 512, 28, 4, 128),
             "internlm2-1.8b": (4, 512, 16, 8, 128),
             "gemma-7b": (4, 512, 16, 16, 256),
@@ -699,9 +723,9 @@ LM_FLASH = {"qwen2-vl-7b": (4, 512, 28, 4, 128),
 
 def check_flash_lm(gen):
     """The LM prefill shapes through both routes within the kernel
-    tolerances (bf16 2e-2, f32 2e-5); the qwen2-vl, gemma and zamba2
-    shapes timed beside the plain version and SDPA (``enable_gqa``), with
-    the kernel's device time per launch and the bound."""
+    tolerances (bf16 2e-2, f32 2e-5), each timed beside the plain version
+    and SDPA (``enable_gqa``), with the kernel's device time per launch and
+    the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -720,20 +744,19 @@ def check_flash_lm(gen):
             rec = dict(shape=[b, s, s, h, kv, dh], causal=True,
                        dtype=str(dt).split(".")[-1], max_abs_err=err,
                        tol=tol)
-            if name != "internlm2-1.8b":
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                rec.update(
-                    ms=median_ms(lambda: K.flash_attention(q, k, v,
-                                                           causal=True)),
-                    device_ms=device_ms(lambda: K.flash_attention(
-                        q, k, v, causal=True))[0],
-                    plain_ms=median_ms(lambda: attention_ref(q, k, v, True)),
-                    library_ms=median_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, enable_gqa=True)))
-                rec["bound_ms"], rec["bound_by"] = bound_ms(
-                    q.element_size() * 2 * b * s * (h + kv) * dh,
-                    _flash_flops(b, s, s, h, dh, True), rec["dtype"])
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            rec.update(
+                ms=median_ms(lambda: K.flash_attention(q, k, v,
+                                                       causal=True)),
+                device_ms=device_ms(lambda: K.flash_attention(
+                    q, k, v, causal=True))[0],
+                plain_ms=median_ms(lambda: attention_ref(q, k, v, True)),
+                library_ms=median_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                q.element_size() * 2 * b * s * (h + kv) * dh,
+                _flash_flops(b, s, s, h, dh, True), rec["dtype"])
             out[f"{name}/{rec['dtype']}"] = rec
     return out
 
@@ -3299,6 +3322,307 @@ def phase_lm_generate(phase="lm-generate"):
     return {name: counts.get(name, 0) for name in SOURCES}
 
 
+# -- lm-train -------------------------------------------------------------------
+
+# full width and depth, nothing cut: the launcher's code path (elastic_train,
+# then train_loop) on the synthetic data pipeline
+LM_TRAIN_ARCH = "internlm2-1.8b"
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MICRO, LM_TRAIN_STEPS = 512, 4, 2, 8
+# one config per LM family, card (f32, TF32 off) against CPU
+LM_TRAIN_REDUCED = ("qwen1.5-0.5b", "qwen2-vl-7b", "olmoe-1b-7b",
+                    "zamba2-2.7b", "xlstm-1.3b", "seamless-m4t-medium")
+LM_TRAIN_LOSS_REL = 2e-3    # eval loss, kernels against plain (bf16)
+LM_TRAIN_F32_LOSS = 1e-5    # reduced train step, card against CPU
+LM_TRAIN_F32_GRAD = 1e-4    # every gradient leaf, relative L2
+LM_TRAIN_F32_LOGITS = 1e-5  # reduced hybrid eval logits, kernels vs plain
+
+
+# a train step's device kernels by kind (the first kind whose tag is in
+# the kernel's name)
+TRAIN_KINDS = (("matmul", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+               ("copy", ("Memcpy", "Memset", "copy_kernel")),
+               ("reduction", ("reduce_kernel", "softmax", "LogSoftMax",
+                              "logsumexp")),
+               ("index", ("index", "gather", "scatter")),
+               ("elementwise", ("elementwise",)))
+
+
+def _lm_train_full():
+    """``internlm2-1.8b`` at full width and depth, random bf16 weights
+    from seed 0: ``LM_TRAIN_STEPS`` steps of the launcher's path (2
+    microbatches, remat, the update donated, no checkpoint) on
+    ``DataPipeline(seq_len=512, global_batch=4)``; the kernels' device
+    counters must read zero over them. Then one eval step with the kernels
+    against the plain one (launches exact, loss and logits within their
+    bounds), and a train step with ``use_kernels`` must raise. Two more
+    steps between them fill a device-only profiler window (device ms and
+    idle share a step, the top kernels)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import elastic_train, make_step_factory
+    from repro_torch.models import api, dense
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainLoopConfig, make_eval_step
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import batch_to
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_TRAIN_ARCH)
+    params = api.init_model(cfg, 0, device="cuda")
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    pipe = DataPipeline(cfg, seq_len=LM_TRAIN_SEQ,
+                        global_batch=LM_TRAIN_BATCH)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=LM_TRAIN_STEPS)
+    loop = TrainLoopConfig(total_steps=LM_TRAIN_STEPS, log_every=1,
+                           ckpt_every=LM_TRAIN_STEPS + 1, ckpt_dir=None)
+    log = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, hist = elastic_train(
+        cfg, params, pipe, opt, loop,
+        step_factory=make_step_factory(cfg, opt, LM_TRAIN_MICRO),
+        log_fn=log.append)
+    train_s = time.perf_counter() - t0
+    train_launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_gb = sum(t.numel() * t.element_size() for k in ("w32", "m", "v")
+                   for t in _leaves(state[k])) / 1e9
+    losses = [h["loss"] for h in hist]
+    step_s = [h["time_s"] for h in hist]
+    if [h["step"] for h in hist] != list(range(LM_TRAIN_STEPS)) \
+            or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm-train: losses {losses}")
+    if any(train_launches.values()):
+        raise AssertionError(f"lm-train: kernels launched during the "
+                             f"train steps: {train_launches}")
+    steady = sorted(step_s[2:])
+    s_step = (steady[2] + steady[3]) / 2  # median of the last 6
+    # where a step's time goes: one more step of the launcher's (donated)
+    # step, warmed by another, in a device-only profiler window
+    batch = batch_to(pipe(LM_TRAIN_STEPS), "cuda")
+    step = make_step_factory(cfg, opt, LM_TRAIN_MICRO)(1)
+    box = {"p": params, "s": state}
+
+    def one():
+        box["p"], box["s"], _ = step(box["p"], box["s"], batch)
+
+    events = profiled(one, one, cpu=False)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    by_kind: dict = {}
+    for e in events:
+        kind = next((k for k, tags in TRAIN_KINDS if any(
+            t in e.key for t in tags)), "other")
+        ms, n = by_kind.get(kind, (0.0, 0))
+        by_kind[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    profile = dict(
+        device_ms_per_step=busy_ms, device_idle_share=max(
+            0.0, 1.0 - busy_ms / (1e3 * s_step)),
+        kernels_per_step=sum(e.count for e in events),
+        ms_and_launches_by_kind=by_kind,
+        top_kernels={e.key[:90]: e.self_device_time_total / 1e3 for e in
+                     sorted(events, key=lambda e: -e.self_device_time_total)
+                     [:8]})
+    # a train step with the kernels: they have no backward
+    try:
+        make_train_step(cfg.replace(use_kernels=True), opt)(params, None,
+                                                            batch)
+    except ValueError as e:
+        raises = str(e)
+    else:
+        raise AssertionError("lm-train: a train step with use_kernels ran")
+    # release w32/m/v before the eval step: the box holds the same state
+    box.clear()
+    del state, step
+    torch.cuda.empty_cache()
+    eval_gb = torch.cuda.memory_allocated() / 1e9
+    # the eval step: kernels (counted) against plain
+    kcfg = cfg.replace(use_kernels=True)
+    want = dict(rmsnorm=2 * cfg.num_layers + 1,
+                flash_attention=cfg.num_layers, ssd_chunk=0)
+    reset_launch_counts()
+    loss_k = float(make_eval_step(kcfg)(params, batch))
+    eval_counts = _lm_counts(want, "lm-train eval step")
+    loss_p = float(make_eval_step(cfg)(params, batch))
+    with torch.no_grad():
+        logits_k = dense.forward_train(params, kcfg, batch["tokens"],
+                                       remat=False)
+        logits_p = dense.forward_train(params, cfg, batch["tokens"],
+                                       remat=False)
+    logits_err = rel_l2(logits_k, logits_p)
+    del logits_k, logits_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not (loss_rel <= LM_TRAIN_LOSS_REL and logits_err <= LM_REL_L2):
+        raise AssertionError(f"lm-train eval: loss {loss_k} vs {loss_p} "
+                             f"({loss_rel}), logits relative L2 "
+                             f"{logits_err}")
+    eval_ms = median_ms(lambda: make_eval_step(kcfg)(params, batch),
+                        iters=5, reps=1, warmup=1)
+    eval_plain_ms = median_ms(lambda: make_eval_step(cfg)(params, batch),
+                              iters=5, reps=1, warmup=1)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    n = api.param_count(cfg)
+    rec = dict(
+        arch=LM_TRAIN_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, params_b=n / 1e9, param_gb=param_gb,
+        optimizer_state_gb=state_gb, batch=LM_TRAIN_BATCH,
+        seq=LM_TRAIN_SEQ, microbatches=LM_TRAIN_MICRO, remat=True,
+        donated_update=True, steps=LM_TRAIN_STEPS, losses=losses,
+        grad_norms=[h["grad_norm"] for h in hist],
+        lrs=[h["lr"] for h in hist], s_per_step=step_s,
+        s_per_step_median_last6=s_step, tokens_per_s=tokens / s_step,
+        train_s=train_s, peak_gb=peak_gb, gb_allocated_at_eval=eval_gb,
+        # 8·N·T FLOPs with remat (forward, recompute, backward) at the bf16
+        # peak, beside the optimizer's f32 state traffic (w32, m, v read
+        # and written, the f32 gradient sum read, bf16 params written)
+        bound_s_flops=8 * n * tokens / PEAK_FLOPS["bfloat16"],
+        bound_s_bytes=(6 * 4 + 4 + 2) * n / PEAK_BYTES_S,
+        train_step_profile=profile, steps_before_eval=LM_TRAIN_STEPS + 2,
+        train_step_launches=train_launches, kernels_raise=raises[:80],
+        eval_launches=eval_counts, eval_loss=loss_k, eval_loss_plain=loss_p,
+        eval_loss_rel=loss_rel, eval_logits_rel_l2=logits_err,
+        eval_ms=eval_ms, eval_plain_ms=eval_plain_ms,
+        log_tail=log[-2:])
+    del params
+    torch.cuda.empty_cache()
+    return rec, eval_counts
+
+
+def _leaves(tree):
+    from repro_torch.utils.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def _lm_train_card_vs_cpu(arch):
+    """One train step's loss and gradients (``loss_and_grads``, remat on)
+    of the reduced f32 config on the card and on the CPU from the same
+    weights (norms off 1) and pipeline batch: loss within 1e-5 relative,
+    every gradient leaf within 1e-4 relative L2."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import api
+    from repro_torch.train.train_step import batch_to, loss_and_grads
+    cfg = get_config(arch, reduced=True)
+    cpu_params = api.init_model(cfg, 0, device="cpu")
+    _lm_norms_off_one(cpu_params, torch.Generator().manual_seed(2))
+    gpu_params = copy.deepcopy(cpu_params).to("cuda")
+    batch = DataPipeline(cfg, seq_len=32, global_batch=4)(5)
+    out = {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        loss, grads = loss_and_grads(cfg, params, batch_to(batch, dev),
+                                     remat=True)
+        out[dev] = (float(loss), [g.cpu().double() for g in
+                                  _leaves(grads)])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    grad_rel = [float((a - b).norm() / max(float(b.norm()), 1e-30))
+                for a, b in zip(gg, gc)]
+    rec = dict(loss_cpu=lc, loss_card=lg, loss_rel=abs(lg - lc) / abs(lc),
+               grad_rel_l2_max=max(grad_rel), leaves=len(grad_rel))
+    if not (rec["loss_rel"] <= LM_TRAIN_F32_LOSS
+            and rec["grad_rel_l2_max"] <= LM_TRAIN_F32_GRAD):
+        raise AssertionError(f"lm-train {arch} card vs CPU: {rec}")
+    return rec
+
+
+def _lm_train_hybrid_eval():
+    """The reduced hybrid's eval step (f32) with the kernels on the card:
+    rmsnorm, flash and ``ssd_chunk`` launched as many times as its
+    prefill's route, the loss (1e-5 relative) and the logits of
+    ``forward_train`` (1e-5 relative L2) held to the plain run on the card
+    (the f32 kernel routes)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import api, zamba2
+    from repro_torch.train import make_eval_step
+    cfg = get_config("zamba2-2.7b", reduced=True)
+    params = api.init_model(cfg, 0, device="cuda")
+    _lm_norms_off_one(params, torch.Generator(device="cuda").manual_seed(2))
+    batch = DataPipeline(cfg, seq_len=32, global_batch=4)(5)
+    reset_launch_counts()
+    loss_k = float(make_eval_step(cfg.replace(use_kernels=True))(params,
+                                                                  batch))
+    counts = _lm_counts(lm_launches(cfg)[0], "reduced hybrid eval step")
+    loss_p = float(make_eval_step(cfg)(params, batch))
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    tokens = torch.from_numpy(batch["tokens"]).to("cuda")
+    with torch.no_grad():
+        logits_err = rel_l2(
+            zamba2.forward_train(params, cfg.replace(use_kernels=True),
+                                 tokens, remat=False),
+            zamba2.forward_train(params, cfg, tokens, remat=False))
+    if not (rel <= LM_TRAIN_F32_LOSS and logits_err <= LM_TRAIN_F32_LOGITS):
+        raise AssertionError(f"hybrid eval: {loss_k} vs {loss_p}, logits "
+                             f"relative L2 {logits_err}")
+    return dict(launches=counts, loss=loss_k, loss_plain=loss_p,
+                loss_rel=rel, logits_rel_l2=logits_err), counts
+
+
+def _lm_train_resume():
+    """Reduced ``qwen1.5-0.5b`` (f32) on the card: 3 steps with a
+    checkpoint, then a run resumed to 6, against an uninterrupted 6:
+    parameters and optimizer state compared leaf by leaf."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainLoopConfig, train_loop
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    pipe = DataPipeline(cfg, seq_len=32, global_batch=4)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    root = tempfile.mkdtemp(prefix="lm_train_resume_")
+    try:
+        def run(d, total):
+            params = api.init_model(cfg, 0, device="cuda")
+            return train_loop(cfg, params, pipe, opt, TrainLoopConfig(
+                total_steps=total, log_every=1, ckpt_every=3, ckpt_dir=d),
+                log_fn=lambda s: None)
+        whole = run(os.path.join(root, "whole"), 6)
+        run(os.path.join(root, "split"), 3)
+        resumed = run(os.path.join(root, "split"), 6)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    diff = [float((a.double() - b.double()).abs().max())
+            for a, b in zip(_leaves(whole[:2]), _leaves(resumed[:2]))]
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(_leaves(whole[:2]), _leaves(resumed[:2])))
+    if not bitwise:
+        raise AssertionError(f"lm-train resume on the card is not bitwise: "
+                             f"max abs gap per leaf {diff}")
+    return dict(bitwise=bitwise, leaves=len(diff),
+                losses_whole=[h["loss"] for h in whole[2]],
+                losses_resumed=[h["loss"] for h in resumed[2]])
+
+
+def phase_lm_train(phase="lm-train"):
+    """LM training through ``repro_torch.launch.train`` at full width
+    (``_lm_train_full``), then the reduced configs card against CPU, the
+    hybrid's eval step with its three kernels, and a resume on the card.
+    Returns the kernels' launches of the full-width eval step."""
+    t0 = time.perf_counter()
+    rec, counts = _lm_train_full()
+    emit(phase, card=CARD[0], seconds=time.perf_counter() - t0, **rec)
+    t0 = time.perf_counter()
+    reduced = {arch: _lm_train_card_vs_cpu(arch) for arch in LM_TRAIN_REDUCED}
+    hybrid, _ = _lm_train_hybrid_eval()
+    resume = _lm_train_resume()
+    emit(phase + "/reduced", card=CARD[0], loss_rel_tol=LM_TRAIN_F32_LOSS,
+         grad_rel_l2_tol=LM_TRAIN_F32_GRAD, configs=reduced,
+         hybrid_eval=hybrid, resume=resume,
+         seconds=time.perf_counter() - t0)
+    return {name: counts.get(name, 0) for name in SOURCES}
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {
@@ -3331,7 +3655,8 @@ SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                                  "flash_attention", "device_loop"},
                  "baselines": {"rmsnorm", "flash_attention"},
                  "train-denoiser": {"rmsnorm", "flash_attention"},
-                 "lm-generate": {"rmsnorm", "flash_attention", "ssd_chunk"}}
+                 "lm-generate": {"rmsnorm", "flash_attention", "ssd_chunk"},
+                 "lm-train": {"rmsnorm", "flash_attention"}}
 
 
 def main(argv=None) -> int:
@@ -3406,7 +3731,8 @@ def main(argv=None) -> int:
             phase_hybrid_f32()
             torch.cuda.empty_cache()
     for path, run in (("train-denoiser", phase_train_denoiser),
-                      ("lm-generate", phase_lm_generate)):
+                      ("lm-generate", phase_lm_generate),
+                      ("lm-train", phase_lm_train)):
         if path not in phases:
             continue
         counts = run()

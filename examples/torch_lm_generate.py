@@ -1,17 +1,18 @@
-"""LM serving path of the PyTorch/CUDA port: greedy decoding with prefill
-and the KV cache (or xLSTM's recurrent state) for every LM config the
-reference serves (the generate half of ``examples/lm_generate.py``).
+"""LM path of the PyTorch/CUDA port, as ``examples/lm_generate.py``:
+train a reduced LM briefly (``train_loop`` on the synthetic data
+pipeline), then greedy-decode with prefill and the KV cache (or xLSTM's
+recurrent state), for every LM config the reference serves.
 
   PYTHONPATH=src python examples/torch_lm_generate.py --arch internlm2-1.8b
   PYTHONPATH=src python examples/torch_lm_generate.py --device cpu
   PYTHONPATH=src python examples/torch_lm_generate.py \
-      --arch seamless-m4t-medium --device cpu
+      --arch seamless-m4t-medium --device cpu --train-steps 5
 
-The reduced config with random weights from seed 0 and, as in the
-reference, a [2, 8] prompt; enc-dec prefills from zero source frames
-[2, 4, D] and decodes step by step. The reference example first trains the
-model for a few steps, which waits for the LM trainer (ROADMAP.md queue 1
-item 11).
+The reduced config with random weights from seed 0, ``--train-steps``
+AdamW steps on ``DataPipeline(seq_len=32, global_batch=8)`` (no remat),
+then, as in the reference, a [2, 8] prompt from the pipeline's step 999;
+enc-dec prefills from zero source frames [2, 4, D] and decodes step by
+step.
 """
 import argparse
 import time
@@ -19,9 +20,12 @@ import time
 import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
+from repro_torch.data import DataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.optim import AdamWConfig
 from repro_torch.serve import greedy_generate, make_decode_step, make_prefill
+from repro_torch.train import TrainLoopConfig, train_loop
 
 BATCH, PROMPT_LEN, SRC_LEN, SEED = 2, 8, 4, 0
 
@@ -46,6 +50,7 @@ def generate_encdec(cfg, params, prompt, steps: int, max_len: int):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b", choices=ASSIGNED_ARCHS)
+    ap.add_argument("--train-steps", type=int, default=30)
     ap.add_argument("--gen-steps", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -53,13 +58,16 @@ def main(argv=None):
 
     cfg = get_config(args.arch, reduced=True)
     print(f"[gen] {cfg.name}: {api.param_count(cfg) / 1e6:.1f} M parameters "
-          f"on {dev}; training first (as examples/lm_generate.py does) "
-          f"waits for the LM trainer, ROADMAP.md queue 1 item 11: the "
-          f"weights are random from seed {SEED}")
+          f"on {dev}, random from seed {SEED}")
     params = api.init_model(cfg, SEED, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
-                           generator=gen, device=dev)
+    pipe = DataPipeline(cfg, seq_len=32, global_batch=8)
+    opt = AdamWConfig(lr=1e-3, total_steps=args.train_steps, warmup_steps=5)
+    params, _, _ = train_loop(
+        cfg, params, pipe, opt,
+        TrainLoopConfig(total_steps=args.train_steps, log_every=10),
+        remat=False)
+    prompt = torch.from_numpy(pipe(999)["tokens"][:BATCH, :PROMPT_LEN]).to(
+        dev)
     t0 = time.perf_counter()
     if api.is_encdec(cfg):
         print(f"[gen] {args.arch} is enc-dec; decoding with zero source "

@@ -42,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api as model_api
 from repro_torch.utils.pspec import ParamTree, init_params, spec
+from repro_torch.utils.tree import requires_grad
 
 
 def wrapper_specs(cfg: ModelConfig, latent_dim: int) -> dict:
@@ -158,20 +159,12 @@ def _denoise_batch_t(params, cfg: ModelConfig, x, t_vec):
     return denoise(params, cfg, x, t_vec)
 
 
-def _needs_grad(params) -> bool:
-    if isinstance(params, torch.Tensor):
-        return params.requires_grad
-    vals = params.values() if isinstance(params, dict) else \
-        (params[k] for k in params.keys())
-    return any(_needs_grad(v) for v in vals)
-
-
 def diffusion_loss_from(params, cfg: ModelConfig, x1, t, eps):
     """Rectified-flow loss ``mean ||v(x_t, t) - (x1 - eps)||^2`` for given
     times ``t`` [B, 1, 1] and noise ``eps`` (x1's shape), with
     ``x_t = (1 - t) eps + t x1``. Raises for ``cfg.use_kernels`` under
     autograd: the kernels have no backward."""
-    if cfg.use_kernels and torch.is_grad_enabled() and _needs_grad(params):
+    if cfg.use_kernels and torch.is_grad_enabled() and requires_grad(params):
         raise ValueError(
             "diffusion_loss: the kernels have no backward (as in the JAX "
             "package, whose training path runs use_kernels=False); train "

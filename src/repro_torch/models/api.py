@@ -1,8 +1,8 @@
 """Model API by config family — port of ``repro.models.api``: the dense
 trunk (``dense``, and the VLM, which runs on it), ``moe``, the zamba2
 hybrid, xLSTM (``ssm``) and enc-dec (``encdec``, ``audio``), each as an LM
-(``prefill``, ``decode_step``, its cache) and as a denoiser trunk
-(:func:`forward_hidden`).
+(``forward_train`` and :func:`lm_loss`; ``prefill``, ``decode_step``, its
+cache) and as a denoiser trunk (:func:`forward_hidden`).
 """
 from __future__ import annotations
 
@@ -12,8 +12,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import dense, encdec, moe, xlstm, zamba2
 from repro_torch.models import layers as L
-from repro_torch.models.dense import _layer, _positions
+from repro_torch.models.dense import _layers, _positions
 from repro_torch.utils import pspec
+from repro_torch.utils.tree import requires_grad
 
 _FAMILY = {"dense": dense, "vlm": dense, "moe": moe, "hybrid": zamba2,
            "ssm": xlstm, "encdec": encdec, "audio": encdec}
@@ -59,6 +60,36 @@ def is_encdec(cfg: ModelConfig) -> bool:
     return cfg.family in ("encdec", "audio")
 
 
+def lm_loss(params, cfg: ModelConfig, batch: dict, **fw_kwargs):
+    """Next-token cross-entropy. ``batch``: {tokens, labels[, src_embeds]}
+    tensors, labels -100 = padding (masked). f32 logits, ``logsumexp``,
+    the gold logit at ``max(labels, 0)``, and the masked sum over
+    ``max(count, 1)``, as the reference. Raises for ``cfg.use_kernels``
+    under autograd with parameters that require grad: the kernels have
+    no backward (the reference trains with the plain ops)."""
+    if cfg.use_kernels and torch.is_grad_enabled() and \
+            requires_grad(params):
+        raise ValueError(
+            "lm_loss: the kernels have no backward (as in the JAX package, "
+            "whose training path runs use_kernels=False); train with "
+            "cfg.replace(use_kernels=False)")
+    mod = get_module(cfg)
+    tokens = batch["tokens"]
+    if is_encdec(cfg):
+        logits = mod.forward_train(params, cfg, tokens, batch["src_embeds"],
+                                   **fw_kwargs)
+    else:
+        logits = mod.forward_train(params, cfg, tokens, **fw_kwargs)
+    labels = batch["labels"]
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
 def forward_hidden(params, cfg: ModelConfig, embeds, **kw):
     """Backbone as a denoiser trunk: embeds in, hidden out (non-causal for
     the dense trunk). The recurrent trunks (hybrid, xLSTM) are causal-only,
@@ -75,9 +106,9 @@ def forward_hidden(params, cfg: ModelConfig, embeds, **kw):
         pos = _positions(cfg, b, s, device=embeds.device)
         mem_pos = _positions(cfg, b, memory.shape[1], device=embeds.device)
         h = embeds
-        for i in range(cfg.dec_layers):
-            h = encdec._dec_block(cfg, _layer(params["dec"], i), h, memory,
-                                  pos, mem_pos, kw.get("attn_impl", "auto"))
+        for p in _layers(params["dec"]):
+            h = encdec._dec_block(cfg, p, h, memory, pos, mem_pos,
+                                  kw.get("attn_impl", "auto"))
         return L.rmsnorm(h, params["final_norm"], cfg.norm_eps,
                          use_kernel=cfg.use_kernels)
     if cfg.family in ("hybrid", "ssm"):

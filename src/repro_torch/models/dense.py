@@ -1,10 +1,11 @@
 """Dense decoder-only transformer — port of ``repro.models.dense``
 (qwen1.5-*, gemma-7b, internlm2, qwen2-vl, the DiT trunk).
 
-Three entry points share one layer body:
+Four entry points share one layer body:
 
   * ``forward_hidden`` — embeds in, hidden out (the denoiser role;
                          optionally non-causal)
+  * ``forward_train``  — tokens -> logits (full sequence, causal)
   * ``prefill``        — tokens -> logits + KV cache
   * ``decode_step``    — one token + cache -> logits + cache
 
@@ -24,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.utils.pspec import spec
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 CACHE_DTYPE = torch.bfloat16
 
@@ -42,10 +44,17 @@ def specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _layer(blocks, i: int) -> dict:
-    """Layer ``i`` of the stacked block parameters as a nested dict."""
-    return {k: blocks[k][i] if isinstance(blocks[k], torch.Tensor)
-            else _layer(blocks[k], i) for k in blocks.keys()}
+def _layers(blocks) -> list:
+    """Every layer of the stacked block parameters as a nested dict (layer
+    ``i``'s leaves are ``leaf[i]``), from one ``unbind`` a leaf. Under
+    autograd the layers' gradients are then stacked back into each leaf
+    once, where slicing layer by layer adds a full-size gradient per layer
+    (a zero fill and an add of the whole ``[L, ...]`` leaf, L times). The
+    values are the same."""
+    leaves, treedef = tree_flatten(blocks)
+    per_leaf = [torch.unbind(x) for x in leaves]
+    return [tree_unflatten(treedef, [views[i] for views in per_leaf])
+            for i in range(len(per_leaf[0]))]
 
 
 def attend_or_decode(cfg: ModelConfig, q, k, v, positions, causal, attn_impl,
@@ -94,17 +103,33 @@ def _positions(cfg: ModelConfig, b, s, offset=0, device="cpu"):
 
 
 def forward_hidden(params, cfg: ModelConfig, embeds, positions=None,
-                   causal=False, attn_impl="auto"):
-    """embeds: [B, S, D] -> hidden [B, S, D]."""
+                   causal=False, attn_impl="auto", remat=False):
+    """embeds: [B, S, D] -> hidden [B, S, D]. ``remat`` recomputes each
+    layer's activations in the backward pass (:func:`L.remat_call`)."""
     b, s, _ = embeds.shape
     if positions is None:
         positions = _positions(cfg, b, s, device=embeds.device)
+
+    def body(h, p):
+        return _block(cfg, p, h, positions, causal, attn_impl)
+
     h = embeds
-    for i in range(cfg.num_layers):
-        h = _block(cfg, _layer(params["blocks"], i), h, positions, causal,
-                   attn_impl)
+    for p in _layers(params["blocks"]):
+        h = L.remat_call(remat, body, h, p)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps,
                      use_kernel=cfg.use_kernels)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, positions=None,
+                  attn_impl="auto", remat=True, embeds=None):
+    """tokens: [B, S] -> logits [B, S, V], causal. ``positions`` (the
+    VLM's M-RoPE ids [3, B, S]) and ``embeds`` [B, S, D] (in place of the
+    token embeddings) pass through, as in the reference."""
+    e = embeds if embeds is not None else \
+        L.embed(params["embed"], cfg, tokens)
+    h = forward_hidden(params, cfg, e, positions, causal=True,
+                       attn_impl=attn_impl, remat=remat)
+    return L.unembed(params["embed"], cfg, h)
 
 
 def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE):
@@ -134,9 +159,8 @@ def run_prefill(params, cfg: ModelConfig, e, block, max_len):
     positions = _positions(cfg, b, s, device=e.device)
     cache = init_cache(cfg, b, max_len, device=e.device)
     h = e
-    for i in range(cfg.num_layers):
-        h = block(_layer(params["blocks"], i), h, positions,
-                  (cache["k"][i], cache["v"][i]))
+    for i, p in enumerate(_layers(params["blocks"])):
+        h = block(p, h, positions, (cache["k"][i], cache["v"][i]))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     cache["len"].fill_(s)
     return L.unembed(params["embed"], cfg, h), cache
@@ -166,9 +190,8 @@ def run_decode(params, cfg: ModelConfig, tokens, cache, block):
     b = tokens.shape[0]
     positions = _positions(cfg, b, 1, offset=cur, device=tokens.device)
     h = L.embed(params["embed"], cfg, tokens)
-    for i in range(cfg.num_layers):
-        h = block(_layer(params["blocks"], i), h, positions,
-                  (cache["k"][i], cache["v"][i]), cur)
+    for i, p in enumerate(_layers(params["blocks"])):
+        h = block(p, h, positions, (cache["k"][i], cache["v"][i]), cur)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     cache["len"] += 1
     return L.unembed(params["embed"], cfg, h), cache

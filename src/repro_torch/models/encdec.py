@@ -20,8 +20,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.dense import (CACHE_DTYPE, _layer, _positions,
-                                      attend_or_decode, decode_position)
+from repro_torch.models.dense import (CACHE_DTYPE, _layers,
+                                      _positions, attend_or_decode,
+                                      decode_position)
 from repro_torch.utils.pspec import spec
 
 
@@ -49,19 +50,24 @@ def specs(cfg: ModelConfig) -> dict:
     }
 
 
-def encode(params, cfg: ModelConfig, src_embeds, attn_impl="auto"):
+def encode(params, cfg: ModelConfig, src_embeds, attn_impl="auto",
+           remat=False):
     """src_embeds: [B, S_src, D] (stub frontend output) -> memory
-    [B, S_src, D]."""
+    [B, S_src, D]. ``remat`` recomputes each layer in the backward
+    pass."""
     b, s, _ = src_embeds.shape
     pos = _positions(cfg, b, s, device=src_embeds.device)
-    h = src_embeds
-    for i in range(cfg.enc_layers):
-        p = _layer(params["enc"], i)
+
+    def body(h, p):
         x = L.rmsnorm(h, p["ln1"], cfg.norm_eps)
         q, k, v = L.qkv_proj(p["attn"], cfg, x, pos)
         h = h + L.out_proj(p["attn"], L.attend(q, k, v, pos, pos, False,
                                                impl=attn_impl))
-        h = h + L.mlp(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+        return h + L.mlp(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+
+    h = src_embeds
+    for p in _layers(params["enc"]):
+        h = L.remat_call(remat, body, h, p)
     return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -102,6 +108,29 @@ def _dec_block(cfg, p, h, memory, pos, mem_pos, attn_impl, self_cache=None,
     return h + L.mlp(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
 
 
+def forward_train(params, cfg: ModelConfig, tokens, src_embeds,
+                  attn_impl="auto", remat=True):
+    """Seq2seq: encode ``src_embeds`` [B, S_src, D], decode ``tokens``
+    [B, S] with cross-attention into the memory; returns logits
+    [B, S, V]. The memory keeps the source frames' dtype, as in the
+    reference: f32 frames (the data pipeline's) run the encoder in f32,
+    and the decoder's cross-attention k/v promote to it
+    (:func:`L.qkv_proj`)."""
+    memory = encode(params, cfg, src_embeds, attn_impl, remat)
+    b, s = tokens.shape
+    pos = _positions(cfg, b, s, device=tokens.device)
+    mem_pos = _positions(cfg, b, memory.shape[1], device=tokens.device)
+
+    def body(h, p):
+        return _dec_block(cfg, p, h, memory, pos, mem_pos, attn_impl)
+
+    h = L.embed(params["embed"], cfg, tokens)
+    for p in _layers(params["dec"]):
+        h = L.remat_call(remat, body, h, p)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return L.unembed(params["embed"], cfg, h)
+
+
 def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE,
                 src_len=None):
     """The cache's leaves as ``(shape, dtype)``; ``src_len`` defaults to
@@ -136,8 +165,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len, src_embeds,
     h = L.embed(params["embed"], cfg, tokens)
     cache = init_cache(cfg, b, max_len, src_len=memory.shape[1],
                        device=h.device)
-    for i in range(cfg.dec_layers):
-        p = _layer(params["dec"], i)
+    for i, p in enumerate(_layers(params["dec"])):
         ck, cv = _cross_kv(p["cross_attn"], memory, h.dtype)
         h = _dec_block(cfg, p, h, memory, pos, mem_pos, attn_impl,
                        self_cache=(cache["k"][i], cache["v"][i]),
@@ -157,9 +185,9 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, attn_impl="auto"):
     pos = _positions(cfg, b, 1, offset=cur, device=tokens.device)
     mem_pos = _positions(cfg, b, cache["ck"].shape[2], device=tokens.device)
     h = L.embed(params["embed"], cfg, tokens)
-    for i in range(cfg.dec_layers):
-        h = _dec_block(cfg, _layer(params["dec"], i), h, None, pos, mem_pos,
-                       attn_impl, self_cache=(cache["k"][i], cache["v"][i]),
+    for i, p in enumerate(_layers(params["dec"])):
+        h = _dec_block(cfg, p, h, None, pos, mem_pos, attn_impl,
+                       self_cache=(cache["k"][i], cache["v"][i]),
                        cross_kv=(cache["ck"][i], cache["cv"][i]), cur=cur)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     cache["len"] += 1

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import on_cuda
@@ -33,6 +34,18 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF, masked_attention
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.utils.pspec import spec
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` its activations are recomputed in the
+    backward pass: the port of the reference's ``jax.checkpoint`` around a
+    layer body. ``torch.utils.checkpoint`` saves the inputs only and
+    recomputes the whole body, where the reference's policy
+    (``dots_with_no_batch_dims_saveable``) keeps the matmul outputs: the
+    values are the same, the time and memory differ."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def rmsnorm(x, w, eps=1e-6, use_kernel=False):
@@ -101,9 +114,14 @@ def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None, cross_kv=None):
     no rotation."""
     theta = cfg.rope_theta if theta is None else theta
     src = x if cross_kv is None else cross_kv
+    # a memory in another dtype (f32 source frames into a bf16 decoder)
+    # promotes the k/v products, as jnp.einsum does
+    kdt = torch.promote_types(src.dtype, x.dtype)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src.to(kdt),
+                     p["wk"].to(x.dtype).to(kdt))
+    v = torch.einsum("bsd,dhk->bshk", src.to(kdt),
+                     p["wv"].to(x.dtype).to(kdt))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)

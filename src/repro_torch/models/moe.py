@@ -180,15 +180,27 @@ def _block(cfg, p, h, positions, causal, attn_impl, num_groups, cache=None,
 
 
 def forward_hidden(params, cfg, embeds, positions=None, causal=False,
-                   attn_impl="auto", num_groups=1):
+                   attn_impl="auto", remat=False, num_groups=1):
     b, s, _ = embeds.shape
     if positions is None:
         positions = _dense._positions(cfg, b, s, device=embeds.device)
+
+    def body(h, p):
+        return _block(cfg, p, h, positions, causal, attn_impl, num_groups)
+
     h = embeds
-    for i in range(cfg.num_layers):
-        h = _block(cfg, _dense._layer(params["blocks"], i), h, positions,
-                   causal, attn_impl, num_groups)
+    for p in _dense._layers(params["blocks"]):
+        h = L.remat_call(remat, body, h, p)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+def forward_train(params, cfg, tokens, attn_impl="auto", remat=True,
+                  num_groups=1):
+    """tokens: [B, S] -> logits [B, S, V], causal."""
+    e = L.embed(params["embed"], cfg, tokens)
+    h = forward_hidden(params, cfg, e, causal=True, attn_impl=attn_impl,
+                       remat=remat, num_groups=num_groups)
+    return L.unembed(params["embed"], cfg, h)
 
 
 # the cache is dense's

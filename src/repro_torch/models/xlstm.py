@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.dense import _layer
+from repro_torch.models.dense import _layers
 from repro_torch.models.mamba2 import _depthwise_causal_conv
 from repro_torch.utils.pspec import spec
 
@@ -339,29 +339,43 @@ def init_cache(cfg: ModelConfig, batch, max_len=None, dtype=None,
     return _zero_states(cfg, batch, resolve_device(device))
 
 
-def _run(params, cfg, e, cache, step: bool):
-    """Every block over ``e`` [B, S, D]. ``cache`` None runs from zero
-    states (conv states None) and leaves no state behind; a cache is read
-    and updated in place (``len`` += S) and returned."""
+def _run(params, cfg, e, cache, step: bool, remat: bool = False):
+    """Every block over ``e`` [B, S, D]. ``cache`` None runs each block
+    from zero states (conv states None), keeps the states as values and
+    writes nothing, so autograd sees no in-place update and no state
+    buffer is allocated; ``remat`` then recomputes each group (its mLSTM
+    blocks and the sLSTM block) in the backward pass, as the reference
+    checkpoints its group body. A cache is read and updated in place
+    (``len`` += S) and returned."""
     g, m_per = _groups(cfg)
-    st = cache if cache is not None else _zero_states(cfg, e.shape[0],
-                                                      e.device)
+    mlstm = [_layers(p) for p in _layers(params["mlstm"])]
+    slstm = _layers(params["slstm"])
+    if cache is None:
+        def group(h, gi):
+            for j in range(m_per):
+                h, _ = _mlstm_block(mlstm[gi][j], cfg, h, step=step)
+            h, _ = _slstm_block(slstm[gi], cfg, h)
+            return h
+
+        h = e
+        for gi in range(g):
+            h = L.remat_call(remat, group, h, gi)
+        return h, None
+    st = cache
     h = e
     for gi in range(g):
         for j in range(m_per):
             h, ((c_, n_, m_), cv_) = _mlstm_block(
-                _layer(_layer(params["mlstm"], gi), j),
-                cfg, h, (st["m_c"][gi, j], st["m_n"][gi, j],
-                         st["m_m"][gi, j]),
-                st["m_conv"][gi, j] if cache is not None else None,
-                step=step)
+                mlstm[gi][j], cfg, h,
+                (st["m_c"][gi, j], st["m_n"][gi, j], st["m_m"][gi, j]),
+                st["m_conv"][gi, j], step=step)
             for key, val in (("m_c", c_), ("m_n", n_), ("m_m", m_),
                              ("m_conv", cv_)):
                 st[key][gi, j] = val.to(F32)
         h, ((sc, sn, sm, sh), scv) = _slstm_block(
-            _layer(params["slstm"], gi), cfg, h,
+            slstm[gi], cfg, h,
             (st["s_c"][gi], st["s_n"][gi], st["s_m"][gi], st["s_h"][gi]),
-            st["s_conv"][gi] if cache is not None else None)
+            st["s_conv"][gi])
         for key, val in (("s_c", sc), ("s_n", sn), ("s_m", sm), ("s_h", sh),
                          ("s_conv", scv)):
             st[key][gi] = val.to(F32)
@@ -370,11 +384,19 @@ def _run(params, cfg, e, cache, step: bool):
 
 
 def forward_hidden(params, cfg: ModelConfig, embeds, positions=None,
-                   causal=True, attn_impl=None, cache=None):
+                   causal=True, attn_impl=None, remat=False, cache=None):
     """embeds: [B, S, D] -> hidden [B, S, D] (causal: the recurrence runs
     forward in sequence order)."""
-    h, _ = _run(params, cfg, embeds, cache, step=False)
+    h, _ = _run(params, cfg, embeds, cache, step=False, remat=remat)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, attn_impl=None,
+                  remat=True):
+    """tokens: [B, S] -> logits [B, S, V]."""
+    e = L.embed(params["embed"], cfg, tokens)
+    h = forward_hidden(params, cfg, e, remat=remat)
+    return L.unembed(params["embed"], cfg, h)
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len=None, attn_impl=None):

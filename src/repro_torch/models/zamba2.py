@@ -1,6 +1,6 @@
 """Zamba2 hybrid — port of ``repro.models.zamba2``: the trunk as a
-denoiser (``forward_hidden``) and as an LM (``prefill``, ``decode_step``
-and the cache).
+denoiser (``forward_hidden``) and as an LM (``forward_train``,
+``prefill``, ``decode_step`` and the cache).
 
 ``num_layers`` Mamba2 (SSD) layers; after every ``attn_every``-th the one
 *shared* attention+MLP block (one parameter set, invoked num_layers /
@@ -8,7 +8,8 @@ attn_every times) runs on concat(hidden, initial embedding). The JAX
 ``scan``s over groups and layers are unrolled into loops over layer views of
 the stacked ``[L, ...]`` parameters (views, no copies).
 
-The LM cache is the reference's: ``conv`` [L, B, W-1, C] (bf16 after the
+``forward_train`` runs the trunk as an LM over whole sequences (no
+cache). The LM cache is the reference's: ``conv`` [L, B, W-1, C] (bf16 after the
 prefill; a decode step stores it in the dtype the reference's concatenate
 promotes it to, f32 for f32 activations), ``ssm`` [L, B, H, hd, N] f32,
 ``k``/``v`` [G, B, Smax, KV, Dh] bf16, one pair per shared-block
@@ -25,8 +26,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.dense import (CACHE_DTYPE, _layer, _positions,
-                                      attend_or_decode, decode_position)
+from repro_torch.models.dense import (CACHE_DTYPE, _layers,
+                                      _positions, attend_or_decode,
+                                      decode_position)
 from repro_torch.utils.pspec import spec
 
 
@@ -80,13 +82,15 @@ def _shared_block(cfg: ModelConfig, sp, h, h0, positions, attn_impl="auto",
 
 
 def forward_hidden(params, cfg: ModelConfig, embeds, positions=None,
-                   causal=True, attn_impl="auto", cache=None):
+                   causal=True, attn_impl="auto", remat=False, cache=None):
     """embeds: [B, S, D] -> hidden [B, S, D]. Causal only: ``causal`` is
     accepted for the API's signature and must be True. ``cache`` (a new
     cache from :func:`init_cache`, S <= its length) collects every layer's
     conv and SSM state and every shared-block invocation's k/v, as the
     reference's ``collect_kv=True``: conv cast to the cache's bf16, k/v
-    written at positions [0, S)."""
+    written at positions [0, S). ``remat`` recomputes each group (its
+    Mamba layers and the shared block) in the backward pass, as the
+    reference checkpoints its group body."""
     if not causal:
         raise ValueError("the zamba2 trunk is causal-only (its SSD "
                          "recurrence runs forward in sequence order)")
@@ -95,12 +99,13 @@ def forward_hidden(params, cfg: ModelConfig, embeds, positions=None,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=embeds.device)[None].expand(b, s)
-    h0, h = embeds, embeds
     uk = cfg.use_kernels
-    for gi in range(g):
+    mamba = _layers(params["mamba"])
+
+    def group(h, h0, gi):
         for j in range(per):
             i = gi * per + j
-            p = _layer(params["mamba"], i)
+            p = mamba[i]
             x = L.rmsnorm(h, p["ln"], cfg.norm_eps, use_kernel=uk)
             y, (conv, ssm) = M.ssd_forward(p["ssd"], cfg, x)
             if cache is not None:
@@ -108,9 +113,22 @@ def forward_hidden(params, cfg: ModelConfig, embeds, positions=None,
                 cache["ssm"][i] = ssm
             h = h + y
         kv = None if cache is None else (cache["k"][gi], cache["v"][gi])
-        h = _shared_block(cfg, params["shared"], h, h0, positions,
-                          attn_impl, kv)
+        return _shared_block(cfg, params["shared"], h, h0, positions,
+                             attn_impl, kv)
+
+    h = embeds
+    for gi in range(g):
+        h = L.remat_call(remat, group, h, embeds, gi)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps, use_kernel=uk)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, attn_impl="auto",
+                  remat=True):
+    """tokens: [B, S] -> logits [B, S, V] (S a multiple of the SSD chunk
+    or shorter than it)."""
+    e = L.embed(params["embed"], cfg, tokens)
+    h = forward_hidden(params, cfg, e, attn_impl=attn_impl, remat=remat)
+    return L.unembed(params["embed"], cfg, h)
 
 
 def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE):
@@ -163,10 +181,11 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, attn_impl="auto"):
     g, per = _groups(cfg)
     positions = _positions(cfg, b, 1, offset=cur, device=tokens.device)
     h0 = h = L.embed(params["embed"], cfg, tokens)
+    mamba = _layers(params["mamba"])
     for gi in range(g):
         for j in range(per):
             i = gi * per + j
-            p = _layer(params["mamba"], i)
+            p = mamba[i]
             x = L.rmsnorm(h, p["ln"], cfg.norm_eps)
             y, (conv, ssm) = M.ssd_decode_step(p["ssd"], cfg, x,
                                                cache["conv"][i],

@@ -91,25 +91,23 @@ def _quantize_ef(g, err):
 
 
 def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
-                  reduced_err: Tree = None):
+                  reduced_err: Tree = None, donate: bool = False):
     """One AdamW step (f32 math on the master copy). Returns (params in
-    each leaf's own dtype, new state, {"grad_norm", "lr"})."""
+    each leaf's own dtype, new state, {"grad_norm", "lr"}).
+
+    ``donate`` is the counterpart of the reference's donated jit
+    arguments: the same values, written leaf by leaf into the storage of
+    ``params`` and of ``state``'s ``w32``/``m``/``v`` (and ``err``), which
+    are returned (``state`` updated in place). Either way one leaf is
+    updated at a time; donated, only that leaf's temporaries are alive
+    beside the state, where the functional form holds the old and the new
+    state together."""
     if reduced_err is not None:
         raise NotImplementedError(f"reduced_err: {_ITEM_14}")
     step = state["step"]
     gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
-    grads = tree_map(lambda g: g.to(torch.float32) * clip, grads)
-
-    leaves, treedef = tree_flatten(grads)
-    new_err = None
-    if cfg.compress_grads:
-        pairs = [_quantize_ef(g, e)
-                 for g, e in zip(leaves, tree_leaves(state["err"]))]
-        leaves = [p[0] for p in pairs]
-        new_err = tree_unflatten(treedef, [p[1] for p in pairs])
-
     lr = lr_at(cfg, step)
     stepf = step.to(torch.float32) + 1
     b1c = 1 - cfg.b1 ** stepf
@@ -124,14 +122,33 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
                            + cfg.weight_decay * w32)
         return w32n, m, v
 
-    out = [upd(*a) for a in zip(tree_leaves(state["w32"]), leaves,
-                                 tree_leaves(state["m"]),
-                                 tree_leaves(state["v"]))]
-    w32, m, v = (tree_unflatten(treedef, [o[i] for o in out])
-                 for i in range(3))
-    new_params = tree_map(lambda w, p: w.to(p.dtype), w32, params)
-    new_state = {"m": m, "v": v, "w32": w32, "step": step + 1}
-    if cfg.compress_grads:
-        new_state["err"] = new_err
-    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+    names = ("w32", "m", "v") + (("err",) if cfg.compress_grads else ())
+    old = [tree_leaves(state[n]) for n in names]
+    p_leaves, treedef = tree_flatten(params)
+    new = [[] for _ in names]
+    new_p = []
 
+    def update_leaf(i, p, g):
+        # a function, so that the leaf's temporaries are freed on return,
+        # before the next leaf's are made
+        g = g.to(torch.float32) * clip
+        err = ()
+        if cfg.compress_grads:
+            g, e = _quantize_ef(g, old[3][i])
+            err = (e,)
+        vals = upd(old[0][i], g, old[1][i], old[2][i]) + err
+        for n, val in enumerate(vals):
+            new[n].append(old[n][i].copy_(val) if donate else val)
+        new_p.append(p.copy_(new[0][i]) if donate else new[0][i].to(p.dtype))
+
+    for i, (p, g) in enumerate(zip(p_leaves, tree_leaves(grads))):
+        update_leaf(i, p, g)
+
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    if donate:
+        state["step"] = step + 1
+        return params, state, metrics
+    new_state = {n: tree_unflatten(treedef, leaves)
+                 for n, leaves in zip(names, new)}
+    new_state["step"] = step + 1
+    return tree_unflatten(treedef, new_p), new_state, metrics

@@ -33,8 +33,9 @@ launch over one set of static state buffers:
 The round is warmed up on a side stream before capture (kernels set their
 shared-memory attributes on their first launch), and captured on the
 current device; every kernel wrapper reads the current stream at each
-launch, which puts its launches in the capture. A capture or instantiation
-error raises: there is no eager fallback. Loop programs need a CUDA 12.4
+launch, which puts its launches in the capture; Python's automatic garbage
+collection is off while it captures (:func:`no_gc`). A capture or
+instantiation error raises: there is no eager fallback. Loop programs need a CUDA 12.4
 runtime and driver.
 
 The batch stream program (``StreamingSampler``, ``ChordsEngine``) is
@@ -52,6 +53,8 @@ so the counts cover replays with nothing added on the host.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 from typing import Dict
 
@@ -62,6 +65,23 @@ from repro_torch.serve.executor import (GridPrograms, GridSpec, SlotState,
                                         StreamState, state_tensors)
 
 WARMUP_ROUNDS = 2
+
+
+@contextlib.contextmanager
+def no_gc():
+    """Python's automatic garbage collection off for the block (a capture):
+    a collection inside a capture may finalize an unreachable graph
+    program, and destroying a CUDA graph is a call that a capture does not
+    permit, so it invalidates the capture (the smoke saw an elastic
+    bucket's capture fail so, four ``CUDAGraph.reset`` warnings first).
+    ``torch.cuda.graph`` collects once as it opens, before the capture."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
 
 
 def copy_state(dst: SlotState, src: SlotState) -> SlotState:
@@ -95,7 +115,7 @@ class GraphGrid:
             self.done0 = torch.zeros(s, dtype=torch.bool, device=self.device)
             self._warm_up()
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(self.graph):
+            with no_gc(), torch.cuda.graph(self.graph):
                 copy_state(self.state, fns["round"](self.state))
             self.graph.instantiate()
             self._loop = loop_kernel.graph_create(
@@ -257,7 +277,7 @@ class _StreamGraph:
             raw = []
             for fn in (init, body, finish):
                 g = torch.cuda.CUDAGraph(keep_graph=True)
-                with torch.cuda.graph(g):
+                with no_gc(), torch.cuda.graph(g):
                     fn()
                 g.instantiate()
                 self._graphs.append(g)

@@ -74,3 +74,8 @@ def tree_map(fn: Callable, tree, *rest):
             raise ValueError(f"trees differ: {len(leaves)} vs {len(o)} "
                              f"leaves")
     return tree_unflatten(d, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def requires_grad(tree) -> bool:
+    """True when any tensor leaf of ``tree`` requires grad."""
+    return any(getattr(x, "requires_grad", False) for x in tree_leaves(tree))
