@@ -121,7 +121,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ``seamless-m4t-medium``, one at a time; random bf16 weights
               from seed 0, the norm weights drawn off 1; batch 4, prompts
               of 512 ids from seed 1, enc-dec source frames [4, 64, D],
-              ``max_len`` 1024, 64 decode steps):
+              ``max_len`` 1024, 32 decode steps):
               kernels against plain, teacher-forced, within relative L2
               2e-2 on every step's logits (top-1 agreement reported),
               launches exact (dense/VLM 2·L rmsnorm and L flash a prefill,
@@ -155,7 +155,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
               eval step with rmsnorm, flash and ``ssd_chunk``, and 3 steps
               resumed to 6 against 6 on the card, bitwise. The kernels
               phase holds and times rmsnorm at [2048, 2048] and flash at
-              [4, 512, 16/8, 128] (the eval step's shapes).
+              [4, 512, 16/8, 128] (the eval step's shapes). Phase 18 also
+              splits qwen2-vl's gap against plain by route
+              (``lm-generate/kernel-split``: both kernels, rmsnorm only,
+              flash only; prefill and 16 teacher-forced decode steps);
+20. hybrid-elastic-serve, hybrid-lane-serve — phases 12 and 13 on
+              ``zamba2-2.7b``, its full widths cut to 12 of 54 layers
+              (``HYBRID_PATHS_LAYERS``), with the DiT's checks;
+21. lm-train-mesh — training on a device mesh: ``internlm2-1.8b`` at full
+              width on a (1, 1) NCCL ``DeviceMesh`` (bf16, batch 4 × 512,
+              2 microbatches, remat, 4 steps): the one-device step, then
+              the mesh step from the same weights and batches (losses and
+              every parameter leaf within 1e-5 relative; the one-device
+              state freed first), the wire-compressed step at W = 1
+              (its reduced gradients and residual bitwise the same
+              two-phase int8 quantization computed locally; the bytes each
+              collective carried, by dtype, and DTensor's own collectives
+              by mesh axis: no reduction over ``data``), and the mesh
+              eval step (49 rmsnorm and 24 flash launches exactly, on the
+              local shards; its loss bitwise the one-device kernel eval,
+              its logits within 2e-2 relative L2 of the mesh's plain
+              ones); s a step, tokens/s, device ms and idle share a step,
+              peak GB and the DTensor overhead beside the one-device
+              figures. Then two ranks sharing the card through gloo
+              (reduced ``qwen1.5-0.5b``, (2, 1)): the compressed psum and
+              a multi-writer sharded save and restore, each on CUDA
+              tensors against the same ranks' CPU run. A DTensor on a
+              CUDA mesh over gloo kills the rank
+              (``benchmarks/torch_gloo_cuda_probe.py``), so no mesh step
+              runs there.
 
 On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
 unless a phase asks for the eager programs. Launch counts are taken by the
@@ -182,7 +210,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
           "overlap-serve", "device-loop", "elastic-serve", "lane-serve",
           "stream-loop", "baselines", "ssd", "hybrid-drift", "hybrid-serve",
-          "hybrid-device-loop", "train-denoiser", "lm-generate", "lm-train")
+          "hybrid-device-loop", "hybrid-elastic-serve", "hybrid-lane-serve",
+          "train-denoiser", "lm-generate", "lm-train", "lm-train-mesh")
+# depth of the hybrid's elastic and lane paths (full widths; 2 of its 9
+# groups of 6 Mamba2 layers and a shared attention block)
+HYBRID_PATHS_LAYERS = 12
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -2974,7 +3006,8 @@ LM_KERNELS = ("rmsnorm", "flash_attention", "ssd_chunk")
 # the norm weights of every LM family (``init_model`` draws them as ones)
 LM_NORMS = ("ln", "ln_in", "ln1", "ln2", "ln_x", "gate_norm", "out_norm",
             "final_norm", "enc_norm")
-LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 1024, 64
+# 32 decode steps (64 before the mesh phase came): cut for the smoke's time
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 4, 512, 1024, 32
 LM_REL_L2 = 2e-2      # kernels against plain: the smoke's bf16 bound
 LM_F32_ATOL = 2e-5    # card against CPU, f32 prefill (attention contract)
 # card against CPU, decode: both sides read the bf16 cache to within one ulp,
@@ -3195,7 +3228,7 @@ def _lm_full(arch):
     if not same_logits:
         raise AssertionError(f"{arch}: a second generation's logits differ")
     marks.append(time.perf_counter())
-    # times: prefill (median of 5), decode (median over the 64 steps), a
+    # times: prefill (median of 5), decode (median over the steps), a
     # profiled decode window continuing the second generation's cache
     prefill = make_prefill(cfg, LM_MAX_LEN)
     with torch.no_grad():
@@ -3303,6 +3336,74 @@ def _lm_card_vs_cpu(arch):
                                        for x, y in zip(a[1:], b[1:])))
 
 
+SPLIT_ARCH, SPLIT_STEPS = "qwen2-vl-7b", 16
+
+
+def _kernel_split(arch=SPLIT_ARCH, steps=SPLIT_STEPS):
+    """Which kernel route carries an arch's gap against plain: its prefill
+    (every position's logits) and ``steps`` teacher-forced decode steps
+    (the plain run's tokens) with both kernels, rmsnorm only (flash's
+    dispatch in ``models/layers.py`` sees no CUDA tensor) and flash only
+    (rmsnorm's in ``kernels/rmsnorm/ops.py`` sees none), each held to the
+    plain run: relative L2 and top-1 agreement."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models import api
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.serve import make_decode_step, make_prefill
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    params = api.init_model(cfg, 0, device="cuda")
+    _lm_norms_off_one(params, torch.Generator(device="cuda").manual_seed(2))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    off = (lambda t: False)
+
+    def run(kernels, teacher=None):
+        kcfg = cfg.replace(use_kernels=kernels)
+        with torch.no_grad():
+            logits, cache = make_prefill(kcfg, LM_MAX_LEN)(params, prompt)
+            out = [logits.float()]
+            decode = make_decode_step(kcfg)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            toks = []
+            for i in range(steps):
+                if teacher is not None:
+                    tok = teacher[:, i:i + 1]
+                toks.append(tok)
+                logits, cache = decode(params, tok, cache)
+                out.append(logits[:, -1].float())
+                tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        return out, torch.cat(toks, dim=1)
+
+    plain, toks = run(False)
+    rec = {}
+    for route, patch in (("both", {}),
+                         ("rmsnorm_only", {(lm_layers, "on_cuda"): off}),
+                         ("flash_only", {(rms_ops, "on_cuda"): off})):
+        saved = {k: getattr(*k) for k in patch}
+        for (mod, name), fn in patch.items():
+            setattr(mod, name, fn)
+        try:
+            out, _ = run(True, teacher=toks)
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        errs = [rel_l2(a, b) for a, b in zip(out, plain)]
+        rec[route] = dict(
+            prefill_rel_l2=errs[0], decode_rel_l2_max=max(errs[1:]),
+            prefill_top1=float((out[0].argmax(-1) == plain[0].argmax(-1))
+                               .float().mean()),
+            decode_top1_min=min(float((a.argmax(-1) == b.argmax(-1))
+                                      .float().mean())
+                                for a, b in zip(out[1:], plain[1:])))
+    del params, plain
+    torch.cuda.empty_cache()
+    return dict(arch=arch, decode_steps=steps, routes=rec)
+
+
 def phase_lm_generate(phase="lm-generate"):
     """LM serving through ``repro_torch.serve``'s prefill and KV-cache (or
     recurrent-state) decode at full width and depth (``LM_FULL``: random
@@ -3314,6 +3415,9 @@ def phase_lm_generate(phase="lm-generate"):
         rec = _lm_full(arch)
         counts = {n: counts[n] + rec["launches"][n] for n in counts}
         emit(phase, card=CARD[0], seconds=time.perf_counter() - t0, **rec)
+    t0 = time.perf_counter()
+    emit(phase + "/kernel-split", card=CARD[0], **_kernel_split(),
+         seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     reduced = {arch: _lm_card_vs_cpu(arch) for arch in LM_REDUCED}
     emit(phase + "/card-vs-cpu", card=CARD[0], prefill_atol=LM_F32_ATOL,
@@ -3623,6 +3727,401 @@ def phase_lm_train(phase="lm-train"):
     return {name: counts.get(name, 0) for name in SOURCES}
 
 
+# -- phase lm-train-mesh ------------------------------------------------------
+
+LM_MESH_STEPS = 4
+LM_MESH_LOSS_REL = 1e-5     # mesh step against the one-device step
+LM_MESH_LEAF_REL = 1e-5     # each parameter leaf, relative L2
+
+
+def _world_one_nccl():
+    """The default process group of one rank, NCCL, on the card (a
+    FileStore rendezvous in a temporary directory); returns its directory."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="lm_train_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    return tmp
+
+
+def _timed_steps(step, params, state, batches):
+    """Run ``step`` over ``batches``, synchronizing after each; (params,
+    state, losses, grad norms, s a step)."""
+    import torch
+    losses, gnorms, secs = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return params, state, losses, gnorms, secs
+
+
+def _step_device(step, params, state, batch, s_step):
+    """Device ms and idle share of one step (a device-only profiler window
+    over one step after a warm one)."""
+    box = {"p": params, "s": state}
+
+    def one():
+        box["p"], box["s"], _ = step(box["p"], box["s"], batch)
+
+    events = profiled(one, one, cpu=False)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    return dict(device_ms_per_step=busy,
+                device_idle_share=max(0.0, 1.0 - busy / (1e3 * s_step)),
+                kernels_per_step=sum(e.count for e in events))
+
+
+def _quantize_two_phase(g):
+    """The compressed step's reduction at W = 1 computed locally in plain
+    torch: (reduced gradient, residual) of one leaf's gradient."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    g32 = g.to(torch.float32)
+    s1 = coll.int8_scale(torch.max(torch.abs(g32)).reshape(1))
+    q = torch.clamp(torch.round(g32 / s1), -127.0, 127.0)
+    tot = q.to(torch.int8).to(torch.float32) * s1
+    s2 = coll.int8_scale(torch.max(torch.abs(tot)).reshape(1))
+    q2 = torch.clamp(torch.round(tot / s2), -127.0, 127.0)
+    return q2.to(torch.int8).to(torch.float32) * s2, \
+        coll.int8_residual(g32.reshape(-1), q.reshape(-1),
+                           s1).reshape(g32.shape)
+
+
+def _lm_train_mesh_full():
+    """``internlm2-1.8b`` at full width on a (1, 1) NCCL mesh: the
+    one-device step, then the mesh step from the same weights and batches
+    (the one-device run's losses and parameters kept on the host, its
+    state freed first: two optimizer states never live at once), the
+    wire-compressed step at W = 1 held bitwise to the same two-phase
+    quantization computed locally, and the mesh eval step with the
+    kernels on each rank's local shards."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import (TRAIN_RULES, ShardingCtx,
+                                           distribute_tree)
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels import mesh as kmesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, dense
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils import pspec
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    cfg = get_config(LM_TRAIN_ARCH)
+    pipe = DataPipeline(cfg, seq_len=LM_TRAIN_SEQ,
+                        global_batch=LM_TRAIN_BATCH)
+    batches = [pipe(i) for i in range(LM_MESH_STEPS)]
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=LM_MESH_STEPS)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    spare = pipe(LM_MESH_STEPS)
+    rec = dict(arch=LM_TRAIN_ARCH, layers=cfg.num_layers,
+               d_model=cfg.d_model, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+               microbatches=LM_TRAIN_MICRO, steps=LM_MESH_STEPS)
+
+    # 1. one device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_model(cfg, 0, device="cuda")
+    state = init_state(params, opt)
+    step = ts.make_train_step(cfg, opt, num_microbatches=LM_TRAIN_MICRO,
+                              remat=True)
+    params, state, losses1, gn1, secs1 = _timed_steps(step, params, state,
+                                                      batches)
+    host = [p.detach().to("cpu", copy=True) for p in _leaves(params)]
+    s1 = sorted(secs1[1:])[len(secs1[1:]) // 2]
+    prof1 = _step_device(step, params, state, ts.batch_to(spare, "cuda"),
+                         s1)
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, step
+    torch.cuda.empty_cache()
+
+    # 2. the mesh step, same weights and batches
+    tmp = _world_one_nccl()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        ctx = ShardingCtx(mesh, TRAIN_RULES)
+        axes = pspec.logical_axes(api.model_specs(cfg))
+        dp = distribute_tree(api.init_model(cfg, 0, device="cuda"), ctx,
+                             axes)
+        state = init_state(dp, opt)
+        mstep = ts.make_train_step(cfg, opt, num_microbatches=LM_TRAIN_MICRO,
+                                   mesh=mesh, remat=True)
+        dp, state, losses2, gn2, secs2 = _timed_steps(mstep, dp, state,
+                                                      batches)
+        leaf_rel = [float((a.to_local().cpu().double() - b.double()).norm()
+                          / max(float(b.double().norm()), 1e-30))
+                    for a, b in zip(_leaves(dp), host)]
+        bitwise = all(torch.equal(a.to_local().cpu(), b)
+                      for a, b in zip(_leaves(dp), host))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses2,
+                                                            losses1))
+        s2 = sorted(secs2[1:])[len(secs2[1:]) // 2]
+        prof2 = _step_device(mstep, dp, state, ts.batch_to(spare, "cuda"),
+                             s2)
+        peak2 = torch.cuda.max_memory_allocated() / 1e9
+        if not (loss_rel <= LM_MESH_LOSS_REL
+                and max(leaf_rel) <= LM_MESH_LEAF_REL):
+            raise AssertionError(f"lm-train-mesh: mesh vs one device: loss "
+                                 f"{loss_rel}, leaves {max(leaf_rel)}")
+        del state, mstep, host
+        torch.cuda.empty_cache()
+
+        # 3. the wire-compressed step at W = 1 (two int8 phases on NCCL)
+        opt_c = AdamWConfig(lr=3e-4, warmup_steps=2,
+                            total_steps=LM_MESH_STEPS, compress_grads=True)
+        state_c = init_state(dp, opt_c, grad_shards=1)
+        seen = {}
+        orig_lg, orig_au = ts.loss_and_grads, ts.apply_updates
+
+        def spy_grads(*a, **kw):
+            loss, grads = orig_lg(*a, **kw)
+            seen["group"] = [g.to_local().clone() for g in _leaves(grads)]
+            return loss, grads
+
+        def spy_update(params, grads, st, cfg_, reduced_err=None, **kw):
+            # leaf by leaf, and the group gradients freed before the
+            # update: at full width the state, its residual and the
+            # reduced gradients already hold ~50 GB
+            group, ok = seen.pop("group"), True
+            for g, red, err in zip(group, _leaves(grads),
+                                   _leaves(reduced_err)):
+                want, want_err = _quantize_two_phase(g)
+                ok &= torch.equal(want, red.to_local()) and \
+                    torch.equal(want_err, err.to_local())
+                del want, want_err
+            seen["bitwise"] = ok
+            del group
+            return orig_au(params, grads, st, cfg_, reduced_err=reduced_err,
+                           **kw)
+
+        cstep = ts.make_train_step(cfg, opt_c, mesh=mesh, remat=True)
+        ts.loss_and_grads, ts.apply_updates = spy_grads, spy_update
+        coll.reset_wire_bytes()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with coll.CollectiveLog(mesh) as log:
+                dp, state_c, mc = cstep(dp, state_c, spare)
+            torch.cuda.synchronize()
+            c_s = time.perf_counter() - t0
+        finally:
+            ts.loss_and_grads, ts.apply_updates = orig_lg, orig_au
+        wire = {f"{op}/{dt}": b for (op, dt), b in coll.wire_bytes().items()}
+        # DTensor's own collectives, which the wire counter does not see:
+        # no all-reduce or reduce-scatter over data beyond a scalar
+        dtensor_coll = {"/".join(k): v for k, v in log.counts.items()}
+        over_data = log.reductions_over("data")
+        c_bitwise = seen["bitwise"]
+        n = api.param_count(cfg)
+        if not (c_bitwise and math.isfinite(float(mc["loss"]))
+                and over_data <= 1
+                and wire.get("all_to_all/int8", 0) >= n
+                and wire.get("all_gather/int8", 0) >= n
+                and not any(k.startswith(("all_to_all/f", "all_gather/b"))
+                            for k in wire)):
+            raise AssertionError(f"lm-train-mesh compressed: bitwise "
+                                 f"{c_bitwise}, wire {wire}, DTensor "
+                                 f"collectives {dtensor_coll}")
+        del state_c, seen
+        torch.cuda.empty_cache()
+
+        # 4. the mesh eval step: the kernels on the local shards
+        kcfg = cfg.replace(use_kernels=True)
+        batch = ts.batch_to(spare, "cuda")
+        want = dict(rmsnorm=2 * cfg.num_layers + 1,
+                    flash_attention=cfg.num_layers, ssd_chunk=0)
+        kmesh.REDISTRIBUTES.clear()
+        reset_launch_counts()
+        loss_k = float(ts.make_eval_step(kcfg, mesh=mesh)(dp, batch))
+        eval_counts = _lm_counts(want, "lm-train-mesh eval step")
+        loss_p = float(ts.make_eval_step(cfg, mesh=mesh)(dp, batch))
+        leaves, treedef = tree_flatten(dp)
+        plain = tree_unflatten(treedef, [x.to_local() for x in leaves])
+        loss_1 = float(ts.make_eval_step(kcfg)(plain, batch))
+        eval_rel = abs(loss_k - loss_p) / abs(loss_p)
+        # the logits of the mesh forward: kernels against plain, and the
+        # kernels on the mesh against the one-device kernels
+        with torch.no_grad():
+            with ts._on_mesh(mesh) as mctx:
+                tok = ts.mesh_batch(spare, mctx, "cuda")["tokens"]
+                lk = dense.forward_train(dp, kcfg, tok,
+                                         remat=False).full_tensor()
+                lp = dense.forward_train(dp, cfg, tok,
+                                         remat=False).full_tensor()
+            l1 = dense.forward_train(plain, kcfg, batch["tokens"],
+                                     remat=False)
+        logits_err = rel_l2(lk, lp)
+        logits_1_bitwise = torch.equal(lk, l1)
+        del lk, lp, l1, tok
+        if not (eval_rel <= LM_TRAIN_LOSS_REL and loss_k == loss_1
+                and logits_err <= LM_REL_L2):
+            raise AssertionError(f"lm-train-mesh eval: kernels {loss_k}, "
+                                 f"plain {loss_p}, one device {loss_1}, "
+                                 f"logits relative L2 {logits_err}")
+        eval_ms = median_ms(lambda: ts.make_eval_step(kcfg, mesh=mesh)(
+            dp, batch), iters=5, reps=1, warmup=1)
+        eval_1_ms = median_ms(lambda: ts.make_eval_step(kcfg)(plain, batch),
+                              iters=5, reps=1, warmup=1)
+        del dp, plain, leaves
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec.update(
+        one_device=dict(losses=losses1, grad_norms=gn1, s_per_step=secs1,
+                        s_per_step_median=s1, tokens_per_s=tokens / s1,
+                        peak_gb=peak1, **prof1),
+        mesh=dict(losses=losses2, grad_norms=gn2, s_per_step=secs2,
+                  s_per_step_median=s2, tokens_per_s=tokens / s2,
+                  peak_gb=peak2, **prof2),
+        mesh_vs_one_device=dict(loss_rel_max=loss_rel,
+                                leaf_rel_l2_max=max(leaf_rel),
+                                bitwise=bitwise),
+        dtensor_overhead_s_per_step=s2 - s1,
+        dtensor_overhead_share=(s2 - s1) / s1,
+        compressed=dict(bitwise_vs_local=c_bitwise, s_step=c_s,
+                        loss=float(mc["loss"]), wire_bytes=wire,
+                        f32_ring_bytes=8 * n,
+                        dtensor_collectives=dtensor_coll,
+                        dtensor_reduction_over_data_max_numel=over_data),
+        eval=dict(launches=eval_counts, loss_kernels=loss_k,
+                  loss_plain=loss_p, loss_one_device=loss_1,
+                  loss_rel=eval_rel, loss_bitwise_one_device=True,
+                  logits_rel_l2_vs_plain=logits_err,
+                  logits_bitwise_one_device=logits_1_bitwise,
+                  redistributes=dict(kmesh.REDISTRIBUTES),
+                  ms=eval_ms, one_device_ms=eval_1_ms))
+    return rec, eval_counts
+
+
+def _mesh_pair_rank(rank, tmp):
+    """One of two ranks sharing the card through gloo: the compressed psum
+    (two rounds, the residual fed back) and the multi-writer sharded save
+    of a reduced ``qwen1.5-0.5b`` state under a (2, 1) ctx, restored; each
+    on CUDA tensors and again on CPU tensors. Rank 0 writes both
+    results."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 2), rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=120))
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.dist.sharding import TRAIN_RULES, ShardingCtx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _build_state_axes
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.trainer import _save_kwargs
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    axes = _build_state_axes(cfg, AdamWConfig())
+    out = {}
+    # a gloo mesh; its groups carry CUDA tensors as well
+    cpu_mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
+    for dev in ("cpu", "cuda"):
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn(2, 4096, generator=g)
+        f = coll.make_compressed_psum(cpu_mesh, "data")
+        err = torch.zeros(1, 4096, device=dev)
+        coll.reset_wire_bytes()
+        res = []
+        for _ in range(2):
+            s_, err = f(x[rank:rank + 1].to(dev), err)
+            res.append((s_.cpu(), err.cpu()))
+        out[dev] = {"psum": res, "psum_wire": coll.wire_bytes()}
+        # the multi-writer sharded save: each rank its dealt shards of the
+        # (2, 1) grid, a barrier over the gloo mesh, rank 0 finalizes
+        params = api.init_model(cfg, 0, device=dev)
+        state = {"params": params, "opt": init_state(params, AdamWConfig())}
+        ctx = ShardingCtx(cpu_mesh, TRAIN_RULES)
+        ck = os.path.join(tmp, f"ck_{dev}")
+        mgr = CheckpointManager(ck)
+        dist.barrier()
+        mgr.save(state, 3, **_save_kwargs(ctx, axes))
+        back, step_n = mgr.restore_latest(state)
+        out[dev]["ckpt"] = (step_n, all(
+            torch.equal(a.cpu(), b.cpu())
+            for a, b in zip(tree_leaves(back), tree_leaves(state))),
+            sorted(os.listdir(os.path.join(ck, "step_00000003"))))
+    if rank == 0:
+        with open(os.path.join(tmp, "pair.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    dist.destroy_process_group()
+
+
+def _lm_train_mesh_pair():
+    """Two ranks sharing the card through gloo (NCCL refuses two ranks of
+    one communicator on one GPU): the same programs on CUDA and on CPU
+    tensors, compared: the psum bitwise (the quantizer's ops are exact
+    or correctly rounded on both) with equal wire bytes; the checkpoint
+    restored bitwise, with the same shard files."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="lm_train_mesh_pair_")
+    try:
+        mp.start_processes(_mesh_pair_rank, args=(tmp,), nprocs=2,
+                           start_method="spawn")
+        with open(os.path.join(tmp, "pair.pkl"), "rb") as fh:
+            out = pickle.load(fh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cpu, gpu = out["cpu"], out["cuda"]
+    rec = {"psum_bitwise": all(
+        torch.equal(a, b) and torch.equal(c, d)
+        for (a, c), (b, d) in zip(gpu["psum"], cpu["psum"])),
+        "psum_wire": {f"{op}/{dt}": v for (op, dt), v in
+                      gpu["psum_wire"].items()}}
+    if not rec["psum_bitwise"] or gpu["psum_wire"] != cpu["psum_wire"]:
+        raise AssertionError(f"lm-train-mesh pair psum: {rec}")
+    rec["ckpt"] = dict(card=gpu["ckpt"][:2], cpu=cpu["ckpt"][:2],
+                       files=len(gpu["ckpt"][2]))
+    if not (gpu["ckpt"][0] == cpu["ckpt"][0] == 3 and gpu["ckpt"][1]
+            and cpu["ckpt"][1] and gpu["ckpt"][2] == cpu["ckpt"][2]):
+        raise AssertionError(f"lm-train-mesh pair checkpoint: {rec}")
+    return rec
+
+
+def phase_lm_train_mesh(phase="lm-train-mesh"):
+    """Training on a device mesh: ``internlm2-1.8b`` at full width on a
+    (1, 1) NCCL mesh (``_lm_train_mesh_full``), then two ranks sharing the
+    card through gloo (``_lm_train_mesh_pair``). Returns the kernels'
+    launches of the mesh eval step."""
+    t0 = time.perf_counter()
+    rec, counts = _lm_train_mesh_full()
+    emit(phase, card=CARD[0], seconds=time.perf_counter() - t0, **rec)
+    t0 = time.perf_counter()
+    pair = _lm_train_mesh_pair()
+    emit(phase + "/pair", card=CARD[0], seconds=time.perf_counter() - t0,
+         **pair)
+    return {name: counts.get(name, 0) for name in SOURCES}
+
+
 # -- main -----------------------------------------------------------------------
 
 SOURCES = {
@@ -3647,6 +4146,9 @@ SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                  "device-loop": _CONTINUOUS | {"device_loop"},
                  "elastic-serve": _CONTINUOUS | {"device_loop"},
                  "lane-serve": _CONTINUOUS,
+                 "hybrid-elastic-serve": _CONTINUOUS | {"device_loop",
+                                                        "ssd_chunk"},
+                 "hybrid-lane-serve": _CONTINUOUS | {"ssd_chunk"},
                  "hybrid-serve": _CONTINUOUS | {"fused_step_rectify",
                                                 "ssd_chunk"},
                  "hybrid-device-loop": _CONTINUOUS | {"device_loop",
@@ -3656,7 +4158,8 @@ SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                  "baselines": {"rmsnorm", "flash_attention"},
                  "train-denoiser": {"rmsnorm", "flash_attention"},
                  "lm-generate": {"rmsnorm", "flash_attention", "ssd_chunk"},
-                 "lm-train": {"rmsnorm", "flash_attention"}}
+                 "lm-train": {"rmsnorm", "flash_attention"},
+                 "lm-train-mesh": {"rmsnorm", "flash_attention"}}
 
 
 def main(argv=None) -> int:
@@ -3695,25 +4198,32 @@ def main(argv=None) -> int:
     # built again): placed before it, the hybrid's one-kernel profiler
     # check, later in the process, lost most of its records (two whole
     # smokes), which the phases alone in a short process did not show
-    for arch, drift_phase, paths in (
+    for arch, drift_phase, paths, overrides in (
             ("chords-dit-xl", "drift", (("serve", phase_serve),
                                         ("overlap-serve",
                                          phase_overlap_serve),
                                         ("device-loop", phase_device_loop),
                                         ("elastic-serve",
                                          phase_elastic_serve),
-                                        ("lane-serve", phase_lane_serve))),
+                                        ("lane-serve", phase_lane_serve)),
+             {}),
             ("zamba2-2.7b", "hybrid-drift", (("hybrid-serve", phase_serve),
                                              ("hybrid-device-loop",
-                                              phase_device_loop))),
+                                              phase_device_loop)), {}),
+            # the hybrid's elastic and lane paths, its full widths cut to
+            # HYBRID_PATHS_LAYERS layers for the smoke's time
+            ("zamba2-2.7b", None, (("hybrid-elastic-serve",
+                                    phase_elastic_serve),
+                                   ("hybrid-lane-serve", phase_lane_serve)),
+             {"num_layers": HYBRID_PATHS_LAYERS}),
             ("chords-dit-xl", None, (("stream-loop", phase_stream_loop),
-                                     ("baselines", phase_baselines)))):
-        if arch == "zamba2-2.7b" and "ssd" in phases:
+                                     ("baselines", phase_baselines)), {})):
+        if drift_phase == "hybrid-drift" and "ssd" in phases:
             phase_ssd()
         if not ({drift_phase} | {p for p, _ in paths}) & set(phases):
             continue
         torch.cuda.reset_peak_memory_stats()
-        cfg, params = build_model(arch)
+        cfg, params = build_model(arch, **overrides)
         if drift_phase in phases:
             phase_drift(cfg, params, drift_phase)
         for path, run in paths:
@@ -3732,7 +4242,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     for path, run in (("train-denoiser", phase_train_denoiser),
                       ("lm-generate", phase_lm_generate),
-                      ("lm-train", phase_lm_train)):
+                      ("lm-train", phase_lm_train),
+                      ("lm-train-mesh", phase_lm_train_mesh)):
         if path not in phases:
             continue
         counts = run()

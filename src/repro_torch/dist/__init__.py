@@ -1,4 +1,4 @@
-"""Distributed substrate of the port (``repro.dist``): the one-host
+"""Distributed substrate of the port (``repro.dist``): sharding rules and
+their DTensor layouts, the int8 compressed collectives, the sharded
 checkpoint manager and the fault-tolerance layer (KV stores, heartbeats,
-elastic mesh plans). Sharding contexts and the compressed collective are
-ROADMAP.md queue 1 item 14."""
+elastic mesh plans)."""

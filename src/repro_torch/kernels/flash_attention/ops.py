@@ -1,5 +1,7 @@
 """Attention dispatcher: the flash kernel for CUDA tensors, the plain
-version (``ref.py``) for CPU tensors and whenever ``use_kernel`` is False."""
+version (``ref.py``) for CPU tensors and whenever ``use_kernel`` is False.
+On a mesh ``models/layers.py::attend`` calls it on each rank's local
+shards (``kernels/mesh.py``)."""
 from __future__ import annotations
 
 from repro_torch.kernels import on_cuda

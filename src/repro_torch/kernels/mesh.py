@@ -1,0 +1,67 @@
+"""The kernels on a mesh: run a kernel on each rank's local shard of
+DTensor inputs.
+
+A kernel reduces over some dims of its inputs (a row for rmsnorm; the head
+dim and the kv sequence for flash attention). Where the layout keeps every
+such dim whole on each rank, the kernel runs on the local blocks as they are
+and its output is laid out like its first input. Where the layout splits
+one, the inputs are first redistributed to the nearest layout that keeps it
+whole (that dim replicated), which is what GSPMD inserts around a Pallas
+call; each such redistribute is counted in :data:`REDISTRIBUTES`, keyed by
+kernel name.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Callable, Dict, Sequence
+
+REDISTRIBUTES: Dict[str, int] = collections.Counter()
+
+
+def _keep_whole(t, dims: Sequence[int]):
+    """``t``'s placements with every Shard of a dim in ``dims`` replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    nd = t.dim()
+    whole = {d % nd for d in dims}
+    return tuple(Replicate() if isinstance(p, Shard) and p.dim in whole
+                 else p for p in t.placements)
+
+
+def local_shards(name: str, kernel: Callable, args, whole: Sequence[tuple],
+                 same_layout: Sequence[int] = (), rows: Sequence = ()):
+    """``kernel(*local blocks, *rows)`` as a DTensor laid out like
+    ``args[0]``.
+
+    ``whole[i]``: the dims of ``args[i]`` that must not be split.
+    ``same_layout``: indices of args that must share ``args[0]``'s
+    placements (flash's k and v with q: a rank's q heads must meet their
+    own GQA group's kv heads); where they differ, a mesh dim on which they
+    disagree is replicated on all of them. ``rows``: plain tensors (or
+    None) indexed by ``args[0]``'s dim 0, the same on every rank (the
+    positions of a batch), passed on as this rank's rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.dist.sharding import local_block
+
+    lays = [list(_keep_whole(a, w)) for a, w in zip(args, whole)]
+    if same_layout:
+        group = [0] + list(same_layout)
+        for md in range(len(lays[0])):
+            if len({repr(lays[i][md]) for i in group}) > 1:
+                for i in group:
+                    lays[i][md] = Replicate()
+    moved = []
+    for a, lay in zip(args, lays):
+        if tuple(lay) != tuple(a.placements):
+            REDISTRIBUTES[name] += 1
+            a = a.redistribute(a.device_mesh, lay)
+        moved.append(a)
+    mesh = moved[0].device_mesh
+    by_row = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in moved[0].placements]
+    mine = [None if r is None else local_block(r, mesh, by_row)
+            for r in rows]
+    out = kernel(*(a.to_local() for a in moved), *mine)
+    return DTensor.from_local(out, mesh, moved[0].placements,
+                              run_check=False)

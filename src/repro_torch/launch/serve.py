@@ -34,6 +34,7 @@ ui.perfetto.dev, verify it with ``python -m repro_torch.obs check PATH``.
   python -m repro_torch.launch.serve --use-kernels --overlap
   python -m repro_torch.launch.serve --use-kernels --device-rounds 8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+      (one intra-op thread on the CPU; the card path keeps torch's default)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
@@ -117,6 +118,13 @@ def main(argv=None):
                  "(drop --static)")
 
     dev = resolve_device(args.device)
+    if dev.type == "cpu":
+        # one intra-op thread: the served tensors are small, and beside
+        # other busy processes each op's thread pool waits at its barrier
+        # for threads the scheduler has taken away (both loops ran past
+        # 150 s beside six busy torch processes at the default count,
+        # 44-51 s at one thread)
+        torch.set_num_threads(1)
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.use_kernels:
         cfg = cfg.replace(use_kernels=True)

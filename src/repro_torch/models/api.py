@@ -6,10 +6,13 @@ cache) and as a denoiser trunk (:func:`forward_hidden`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import block_range, is_dtensor, shard_act
 from repro_torch.models import dense, encdec, moe, xlstm, zamba2
 from repro_torch.models import layers as L
 from repro_torch.models.dense import _layers, _positions
@@ -81,13 +84,77 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, **fw_kwargs):
     else:
         logits = mod.forward_train(params, cfg, tokens, **fw_kwargs)
     labels = batch["labels"]
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    logits = shard_act(logits, ("batch", "seq", "vocab")).to(torch.float32)
+    if is_dtensor(logits):
+        logz, gold = _vocab_parallel_logz_gold(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp_min(
+            labels, 0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     nll = (logz - gold) * mask
     return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+class _BlockLogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim of this rank's vocab block ``x``, the
+    blocks' maxima and sums reduced by ``reduce(t, op)``. The forward is
+    ``torch.logsumexp``'s formula (the max, an infinite max taken as 0,
+    the log of the sum of the exps of the differences, plus the max) and
+    the backward its own, ``grad * exp(x - logz)`` on the block, so where
+    no mesh dim of more than one rank splits the vocab both are its
+    bits."""
+
+    @staticmethod
+    def forward(ctx, x, reduce):
+        m = reduce(torch.amax(x, dim=-1), "max")
+        m = torch.where(torch.abs(m) == math.inf, torch.zeros_like(m), m)
+        s = reduce(torch.sum(torch.exp(x - m[..., None]), dim=-1), "sum")
+        logz = torch.log(s) + m
+        ctx.save_for_backward(x, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, logz = ctx.saved_tensors
+        return grad[..., None] * torch.exp(x - logz[..., None]), None
+
+
+def _vocab_parallel_logz_gold(logits, labels):
+    """(logsumexp over the vocab, the logit at ``max(labels, 0)``) of f32
+    DTensor logits [B, S, V], as DTensors [B, S] laid out like the logits'
+    rows. Each rank reduces the vocab block it holds; the blocks' maxima,
+    sums and gold picks are then reduced over the mesh dims that split the
+    vocab (three all-reduces of [B, S] rows, never the [B, S, V] logits):
+    the vocab-parallel cross-entropy. DTensor's own ``logsumexp`` and
+    ``gather`` would gather the vocab, or fail: its gather over a sharded
+    dim gives a mask-partial that the next op cannot reduce. Where no mesh
+    dim of more than one rank splits the vocab, the values and gradients
+    are the bits of ``torch.logsumexp`` and ``torch.gather``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    vocab = [isinstance(p, Shard) and p.dim == last
+             for p in logits.placements]
+    lay = [Replicate() if v else p for v, p in zip(vocab, logits.placements)]
+    if tuple(labels.placements) != tuple(lay):
+        labels = labels.redistribute(mesh, lay)
+
+    def over_vocab(t, op):
+        part = [Partial(op) if v else p for v, p in zip(vocab, lay)]
+        return DTensor.from_local(t, mesh, part,
+                                  run_check=False).redistribute(mesh, lay)
+
+    x = logits.to_local()
+    logz = _BlockLogSumExp.apply(
+        x, lambda t, op: over_vocab(t, op).to_local())
+    start, n = block_range(logits.shape[last], last, mesh, logits.placements)
+    idx = torch.clamp_min(labels.to_local(), 0).long() - start
+    held = (idx >= 0) & (idx < n)
+    g = torch.gather(x, -1, torch.where(held, idx, 0)[..., None])[..., 0]
+    gold = over_vocab(torch.where(held, g, torch.zeros_like(g)), "sum")
+    return DTensor.from_local(logz, mesh, lay, run_check=False), gold
 
 
 def forward_hidden(params, cfg: ModelConfig, embeds, **kw):

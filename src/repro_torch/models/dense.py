@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_act
 from repro_torch.models import layers as L
 from repro_torch.utils.pspec import spec
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
@@ -90,8 +91,10 @@ def _block(cfg: ModelConfig, p, h, positions, causal, attn_impl="auto",
     attn = attend_or_decode(cfg, q, k, v, positions, causal, attn_impl,
                             cache, cur, use_kernel=uk)
     h = h + L.out_proj(p["attn"], attn)
+    h = shard_act(h, ("batch", "seq", "embed_act"))
     x = L.rmsnorm(h, p["ln2"], cfg.norm_eps, use_kernel=uk)
-    return h + L.mlp(p["mlp"], cfg, x)
+    h = h + L.mlp(p["mlp"], cfg, x)
+    return shard_act(h, ("batch", "seq", "embed_act"))
 
 
 def _positions(cfg: ModelConfig, b, s, offset=0, device="cpu"):
@@ -127,9 +130,15 @@ def forward_train(params, cfg: ModelConfig, tokens, positions=None,
     token embeddings) pass through, as in the reference."""
     e = embeds if embeds is not None else \
         L.embed(params["embed"], cfg, tokens)
+    e = shard_act(e, ("batch", "seq", "embed_act"))
     h = forward_hidden(params, cfg, e, positions, causal=True,
                        attn_impl=attn_impl, remat=remat)
     return L.unembed(params["embed"], cfg, h)
+
+
+def cache_axes(cfg: ModelConfig):
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "len": ("batch",)}
 
 
 def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE):

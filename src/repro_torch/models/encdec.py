@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_act
 from repro_torch.models import layers as L
 from repro_torch.models.dense import (CACHE_DTYPE, _layers,
                                       _positions, attend_or_decode,
@@ -63,7 +64,8 @@ def encode(params, cfg: ModelConfig, src_embeds, attn_impl="auto",
         q, k, v = L.qkv_proj(p["attn"], cfg, x, pos)
         h = h + L.out_proj(p["attn"], L.attend(q, k, v, pos, pos, False,
                                                impl=attn_impl))
-        return h + L.mlp(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+        h = h + L.mlp(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+        return shard_act(h, ("batch", "seq", "embed_act"))
 
     h = src_embeds
     for p in _layers(params["enc"]):
@@ -105,7 +107,8 @@ def _dec_block(cfg, p, h, memory, pos, mem_pos, attn_impl, self_cache=None,
                                 cross_kv=memory)
     ax = L.attend(qx, ck, cv, pos, mem_pos, False, impl=attn_impl)
     h = h + L.out_proj(p["cross_attn"], ax)
-    return h + L.mlp(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    h = h + L.mlp(p["mlp"], cfg, L.rmsnorm(h, p["ln2"], cfg.norm_eps))
+    return shard_act(h, ("batch", "seq", "embed_act"))
 
 
 def forward_train(params, cfg: ModelConfig, tokens, src_embeds,
@@ -124,11 +127,17 @@ def forward_train(params, cfg: ModelConfig, tokens, src_embeds,
     def body(h, p):
         return _dec_block(cfg, p, h, memory, pos, mem_pos, attn_impl)
 
-    h = L.embed(params["embed"], cfg, tokens)
+    h = shard_act(L.embed(params["embed"], cfg, tokens),
+                  ("batch", "seq", "embed_act"))
     for p in _layers(params["dec"]):
         h = L.remat_call(remat, body, h, p)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], cfg, h)
+
+
+def cache_axes(cfg: ModelConfig):
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "ck": ax, "cv": ax, "len": ("batch",)}
 
 
 def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE,

@@ -29,6 +29,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import block_range, is_dtensor, shard_act
+from repro_torch.kernels import mesh as kmesh
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF, masked_attention
@@ -135,6 +137,9 @@ def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None, cross_kv=None):
             q = apply_rope(q, positions, theta)
             if cross_kv is None:
                 k = apply_rope(k, positions, theta)
+    q = shard_act(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard_act(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = shard_act(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
@@ -252,7 +257,18 @@ def attend(q, k, v, q_pos, k_pos, causal: bool, impl: str = "auto",
     unlike the reference no shape falls back to another path. Otherwise
     (and for CPU tensors whatever ``use_kernel`` says, which keeps the flag
     bitwise-neutral there) ``impl`` picks the plain path: ``"auto"`` is
-    ``"chunked"`` past 2048 keys, else ``"full"``."""
+    ``"chunked"`` past 2048 keys, else ``"full"``. On a mesh (DTensor
+    q/k/v) each rank attends its own rows and heads, the sequences and the
+    head dim whole (``kernels/mesh.py``): the reshapes of the grouped
+    heads are local, where DTensor would refuse to flatten a sharded
+    heads dim."""
+    if is_dtensor(q):
+        return kmesh.local_shards(
+            "flash_attention" if use_kernel else "attention",
+            lambda a, b, c, qp, kp: attend(a, b, c, qp, kp, causal, impl,
+                                           chunk, scale, use_kernel),
+            (q, k, v), whole=((1, 3),) * 3, same_layout=(1, 2),
+            rows=(q_pos, k_pos))
     if use_kernel and on_cuda(q):
         return flash_ops.attend(q, k, v, causal=causal, scale=scale)
     if impl == "auto":
@@ -295,7 +311,8 @@ def mlp(p, cfg: ModelConfig, x):
     act = activation(cfg)
     g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
-    return torch.einsum("bsf,fd->bsd", act(g) * u, p["w_down"].to(x.dtype))
+    h = shard_act(act(g) * u, ("batch", "seq", "ffn"))
+    return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(x.dtype))
 
 
 def embed_specs(cfg: ModelConfig):
@@ -307,10 +324,43 @@ def embed_specs(cfg: ModelConfig):
     return specs
 
 
+def _lookup_on_rows(table, tokens):
+    """The embedding lookup on a mesh, vocab-parallel: the table's embed
+    dim gathered (the FSDP gather), its vocab rows kept split where the
+    layout splits them. Each rank looks up its own rows of ``tokens``
+    among the vocab rows it holds, zeros for the ids it does not hold, and
+    the sum over the mesh dims that split the vocab (an all-reduce of the
+    [rows, S, D] embeddings) gives every rank its rows' embeddings: no
+    rank holds more of the table than its vocab block. The table's
+    gradient is declared partial over the mesh dims that split the token
+    rows (each rank holds its rows' part of it), so autograd reduces it
+    back onto the table's layout. DTensor's own lookup is not used: its
+    backward (``index_put``) fails on a sharded table in some releases."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    rows = [isinstance(p, Shard) and p.dim == 0 for p in tokens.placements]
+    vocab = [isinstance(p, Shard) and p.dim == 0 and not r
+             for p, r in zip(table.placements, rows)]
+    lay = [Shard(0) if v else Replicate() for v in vocab]
+    local = table.redistribute(mesh, lay).to_local(grad_placements=[
+        Partial() if r else q for r, q in zip(rows, lay)])
+    start, n = block_range(table.shape[0], 0, mesh, lay)
+    ids = tokens.to_local() - start
+    held = (ids >= 0) & (ids < n)
+    out = torch.where(held[..., None], local[torch.where(held, ids, 0)],
+                      torch.zeros((), dtype=local.dtype, device=local.device))
+    out_lay = [Shard(0) if r else Replicate() for r in rows]
+    part = [Partial() if v else q for v, q in zip(vocab, out_lay)]
+    return DTensor.from_local(out, mesh, part, run_check=False).redistribute(
+        mesh, out_lay)
+
+
 def embed(p, cfg: ModelConfig, tokens):
     """Token ids -> embeddings in the compute dtype; gemma's scale by
     sqrt(d_model) is taken after the cast, in that dtype."""
-    e = p["tok"][tokens].to(getattr(torch, cfg.compute_dtype))
+    e = (_lookup_on_rows(p["tok"], tokens) if is_dtensor(tokens)
+         else p["tok"][tokens]).to(getattr(torch, cfg.compute_dtype))
     if cfg.emb_scale:
         e = e * torch.full((), math.sqrt(cfg.d_model), dtype=e.dtype,
                            device=e.device)

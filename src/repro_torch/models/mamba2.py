@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_act
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.utils.pspec import spec
@@ -191,7 +192,8 @@ def ssd_forward(p, cfg: ModelConfig, x, conv_state=None, ssm_state=None,
     a = -torch.exp(p["a_log"].to(f32))  # [H]
     loga = dt * a[None, None, :]  # [B, S, H] (log decay, <= 0)
 
-    xh = xc.reshape(bsz, nc, lc, h, hd)
+    xh = shard_act(xc.reshape(bsz, nc, lc, h, hd),
+                   ("batch", None, None, "heads", None))
     bh = b_.reshape(bsz, nc, lc, n).to(f32)
     ch = c_.reshape(bsz, nc, lc, n).to(f32)
     dth = dt.reshape(bsz, nc, lc, h)
@@ -248,6 +250,13 @@ def ssd_decode_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
     y = _gated_norm(y, z, p["gate_norm"], cfg.norm_eps)
     out = torch.einsum("bsk,kd->bsd", y, p["out_proj"].to(x.dtype))
     return out, (new_conv, new_state)
+
+
+def ssd_state_axes():
+    return {
+        "conv": ("layers", "batch", "conv", "ffn"),
+        "ssm": ("layers", "batch", "heads", None, "state"),
+    }
 
 
 def ssd_state_specs(cfg: ModelConfig, batch, layers: int,

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_act
 from repro_torch.models import layers as L
 from repro_torch.models.dense import _layers
 from repro_torch.models.mamba2 import _depthwise_causal_conv
@@ -213,6 +214,7 @@ def _mlstm_block(p, cfg, x, state=None, conv_state=None, step=False):
     xin = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     u = torch.einsum("bsd,dk->bsk", xin, p["w_up"].to(x.dtype))
     g = torch.einsum("bsd,dk->bsk", xin, p["w_gate"].to(x.dtype))
+    u = shard_act(u, ("batch", "seq", "mem"))
     if conv_state is not None:
         conv_state = conv_state.to(u.dtype)
     cv, new_conv = _depthwise_causal_conv(u, p["conv_w"].to(x.dtype),
@@ -305,6 +307,22 @@ def _slstm_block(p, cfg, x, state=None, conv_state=None):
 # ---------------------------------------------------------------------------
 
 
+def cache_axes(cfg: ModelConfig):
+    return {
+        # the matrix memory shards its output dim (e), as the reference's
+        "m_c": ("layers", None, "batch", "heads", None, "mem"),
+        "m_n": ("layers", None, "batch", "heads", "mem"),
+        "m_m": ("layers", None, "batch", "heads"),
+        "m_conv": ("layers", None, "batch", "conv", "mem"),
+        "s_c": ("layers", "batch", "heads", None),
+        "s_n": ("layers", "batch", "heads", None),
+        "s_m": ("layers", "batch", "heads", None),
+        "s_h": ("layers", "batch", "heads", None),
+        "s_conv": ("layers", "batch", "conv", "embed"),
+        "len": ("batch",),
+    }
+
+
 def cache_specs(cfg: ModelConfig, batch, max_len=None, dtype=None):
     """The recurrent state's leaves as ``(shape, dtype)`` (no ``max_len``:
     its size does not grow with the sequence)."""
@@ -394,7 +412,8 @@ def forward_hidden(params, cfg: ModelConfig, embeds, positions=None,
 def forward_train(params, cfg: ModelConfig, tokens, attn_impl=None,
                   remat=True):
     """tokens: [B, S] -> logits [B, S, V]."""
-    e = L.embed(params["embed"], cfg, tokens)
+    e = shard_act(L.embed(params["embed"], cfg, tokens),
+                  ("batch", "seq", "embed_act"))
     h = forward_hidden(params, cfg, e, remat=remat)
     return L.unembed(params["embed"], cfg, h)
 

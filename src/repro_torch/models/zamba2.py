@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_act
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.dense import (CACHE_DTYPE, _layers,
@@ -126,9 +127,17 @@ def forward_train(params, cfg: ModelConfig, tokens, attn_impl="auto",
                   remat=True):
     """tokens: [B, S] -> logits [B, S, V] (S a multiple of the SSD chunk
     or shorter than it)."""
-    e = L.embed(params["embed"], cfg, tokens)
+    e = shard_act(L.embed(params["embed"], cfg, tokens),
+                  ("batch", "seq", "embed_act"))
     h = forward_hidden(params, cfg, e, attn_impl=attn_impl, remat=remat)
     return L.unembed(params["embed"], cfg, h)
+
+
+def cache_axes(cfg: ModelConfig):
+    ssm_ax = M.ssd_state_axes()
+    kv_ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"conv": ssm_ax["conv"], "ssm": ssm_ax["ssm"], "k": kv_ax,
+            "v": kv_ax, "len": ("batch",)}
 
 
 def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE):

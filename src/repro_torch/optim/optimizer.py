@@ -7,9 +7,12 @@ moments ``m`` and ``v``, ``step``, and with ``compress_grads`` the int8
 error-feedback residual ``err``. Updates are functional, as in the
 reference: each call returns new tensors.
 
-The one-process path is ported. ``grad_shards > 1`` and ``reduced_err``
-belong to the wire-compressed collective (ROADMAP.md queue 1 item 14) and
-raise. ``jnp.round`` and ``torch.round`` both round half to even, so
+On a mesh the leaves are DTensors: the state is made like the parameters
+(same placements; ``err`` with ``grad_shards`` > 1 takes a leading [W]
+"groups" dim on the mesh's ``data`` axis, one residual a data rank, for the
+wire-compressed step of ``train/train_step.py``), each gradient is first
+laid out as its parameter, and the global norm is one reduction over the
+mesh. ``jnp.round`` and ``torch.round`` both round half to even, so
 :func:`_quantize_ef` quantizes as the reference does.
 """
 from __future__ import annotations
@@ -20,12 +23,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
                                     tree_unflatten)
 
 Tree = Any
-_ITEM_14 = ("the wire-compressed gradient collective is ROADMAP.md queue 1 "
-            "item 14 (dist)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,28 +59,101 @@ def _master_copy(p):
     return p.detach().to(torch.float32, copy=True)
 
 
+def _zeros_f32(p):
+    """f32 zeros laid out as ``p`` (a DTensor keeps its placements)."""
+    return torch.zeros_like(p, dtype=torch.float32)
+
+
+def _group_err(p, grad_shards: int):
+    """The [W, *p.shape] f32 zero residual of the compressed step: the
+    leading "groups" dim on the mesh's ``data`` axis, the rest laid out as
+    ``p`` on the other mesh axes (``state_axes``'s ``("groups",) + axes``
+    under ``TRAIN_RULES``)."""
+    shape = (grad_shards,) + tuple(p.shape)
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dt_zeros
+
+    mesh = p.device_mesh
+    lay = []
+    for name, pl in zip(mesh.mesh_dim_names, p.placements):
+        if name == "data":
+            lay.append(Shard(0))
+        elif isinstance(pl, Shard):
+            lay.append(Shard(pl.dim + 1))
+        else:
+            lay.append(Replicate())
+    return dt_zeros(shape, dtype=torch.float32, device_mesh=mesh,
+                    placements=lay)
+
+
 def init_state(params: Tree, cfg: AdamWConfig, grad_shards: int = 1) -> dict:
-    """Zero moments, the f32 master copy and step 0 on the params' device."""
-    if grad_shards > 1:
-        raise NotImplementedError(f"grad_shards={grad_shards}: {_ITEM_14}")
-
-    def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-
+    """Zero moments, the f32 master copy and step 0 on the params' device,
+    each leaf laid out as its parameter. ``grad_shards`` > 1 gives the
+    error-feedback residual a leading [W] dim: one residual a data rank,
+    for the wire-compressed step where each rank quantizes its own group's
+    gradient."""
     leaf = tree_leaves(params)[0]
-    state = {"m": tree_map(f32, params), "v": tree_map(f32, params),
+    state = {"m": tree_map(_zeros_f32, params),
+             "v": tree_map(_zeros_f32, params),
              "w32": tree_map(_master_copy, params),
              "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
     if cfg.compress_grads:
-        state["err"] = tree_map(f32, params)
+        state["err"] = tree_map(
+            (lambda p: _group_err(p, grad_shards)) if grad_shards > 1
+            else _zeros_f32, params)
     return state
 
 
+def state_axes(param_axes: Tree, cfg: AdamWConfig,
+               grad_shards: int = 1) -> dict:
+    """The state's logical axes from the parameters' (a tree of tuples)."""
+    def ident(t):
+        return t if isinstance(t, tuple) else {k: ident(v)
+                                               for k, v in t.items()}
+
+    def groups(t):
+        return ("groups",) + t if isinstance(t, tuple) else \
+            {k: groups(v) for k, v in t.items()}
+
+    s = {"m": ident(param_axes), "v": ident(param_axes),
+         "w32": ident(param_axes), "step": ()}
+    if cfg.compress_grads:
+        s["err"] = groups(param_axes) if grad_shards > 1 else s["m"]
+    return s
+
+
 def _global_norm(tree: Tree):
+    leaves = tree_leaves(tree)
+    if leaves and is_dtensor(leaves[0]):
+        return _global_norm_mesh(leaves)
     total = 0
-    for x in tree_leaves(tree):  # the reference's Python sum, in leaf order
+    for x in leaves:  # the reference's Python sum, in leaf order
         total = total + torch.sum(torch.square(x.to(torch.float32)))
     return torch.sqrt(torch.as_tensor(total))
+
+
+def _global_norm_mesh(leaves):
+    """The global norm of DTensor leaves (each laid out as its parameter:
+    sharded or replicated, never partial) with one reduction over the
+    mesh: every rank sums the squares of its own blocks, a block that is
+    replicated along a mesh dim counted only at coordinate 0 there, and the
+    per-rank sums are reduced once as a partial DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = 0
+    for x in leaves:
+        sq = torch.sum(torch.square(x.to_local().to(torch.float32)))
+        if any(isinstance(pl, Replicate) and c != 0
+               for pl, c in zip(x.placements, coord)):
+            sq = sq * 0.0
+        total = total + sq
+    part = DTensor.from_local(torch.as_tensor(total), mesh,
+                              [Partial()] * mesh.ndim, run_check=False)
+    return torch.sqrt(part.full_tensor())
 
 
 def _quantize_ef(g, err):
@@ -101,9 +176,19 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
     are returned (``state`` updated in place). Either way one leaf is
     updated at a time; donated, only that leaf's temporaries are alive
     beside the state, where the functional form holds the old and the new
-    state together."""
-    if reduced_err is not None:
-        raise NotImplementedError(f"reduced_err: {_ITEM_14}")
+    state together.
+
+    ``reduced_err``: the residual tree of the wire-compressed gradient
+    collective (``train_step._make_compressed_step``). The grads are then
+    already int8-reduced on the wire, so the local quantization model is
+    skipped and that residual is carried as the new ``err``.
+
+    DTensor leaves (a mesh): each gradient is first laid out as its
+    parameter (a partial gradient is reduced here)."""
+    if tree_leaves(params) and is_dtensor(tree_leaves(params)[0]):
+        grads = tree_map(lambda p, g: g.redistribute(p.device_mesh,
+                                                     p.placements),
+                         params, grads)
     step = state["step"]
     gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -125,6 +210,7 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
     names = ("w32", "m", "v") + (("err",) if cfg.compress_grads else ())
     old = [tree_leaves(state[n]) for n in names]
     p_leaves, treedef = tree_flatten(params)
+    red_err = None if reduced_err is None else tree_leaves(reduced_err)
     new = [[] for _ in names]
     new_p = []
 
@@ -133,7 +219,9 @@ def apply_updates(params: Tree, grads: Tree, state: dict, cfg: AdamWConfig,
         # before the next leaf's are made
         g = g.to(torch.float32) * clip
         err = ()
-        if cfg.compress_grads:
+        if cfg.compress_grads and reduced_err is not None:
+            err = (red_err[i],)
+        elif cfg.compress_grads:
             g, e = _quantize_ef(g, old[3][i])
             err = (e,)
         vals = upd(old[0][i], g, old[1][i], old[2][i]) + err

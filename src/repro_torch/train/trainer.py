@@ -1,6 +1,6 @@
 """Training loop with checkpoint/restart, straggler monitoring, and
-deterministic data resume — port of ``repro.train.trainer``, the
-single-process engine the launcher drives.
+deterministic data resume — port of ``repro.train.trainer``, the engine the
+launcher drives (one process, or every rank of a mesh in lockstep).
 """
 from __future__ import annotations
 
@@ -17,9 +17,6 @@ from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
 from repro_torch.optim.optimizer import AdamWConfig, init_state
 from repro_torch.train.train_step import make_train_step
 
-_ITEM_14 = ("sharded checkpoints (sharding_ctx / state_axes) are "
-            "ROADMAP.md queue 1 item 14 (dist)")
-
 
 @dataclasses.dataclass
 class TrainLoopConfig:
@@ -35,6 +32,30 @@ def _wait(t) -> None:
     that holds ``t`` (the reference's ``jax.block_until_ready``)."""
     if t.device.type == "cuda":
         torch.cuda.synchronize(t.device)
+
+
+def _save_kwargs(ctx, axes) -> dict:
+    """``CheckpointManager.save``'s sharding arguments: on a ``DeviceMesh``
+    every rank of it writes the shards dealt to it (its flat position in
+    the mesh is its process index) and the ranks meet at a barrier over
+    each mesh dim in turn, which together wait for the whole mesh."""
+    if ctx is None:
+        return {}
+    kw = {"ctx": ctx, "axes": axes}
+    mesh = ctx.mesh
+    if hasattr(mesh, "get_group"):
+        import torch.distributed as dist
+
+        ranks = mesh.mesh.reshape(-1).tolist()
+        groups = [mesh.get_group(i) for i in range(mesh.ndim)]
+
+        def barrier():
+            for g in groups:
+                dist.barrier(group=g)
+
+        kw.update(process_index=ranks.index(dist.get_rank()),
+                  process_count=len(ranks), barrier=barrier)
+    return kw
 
 
 def train_loop(cfg: ModelConfig, params, data_iter, opt_cfg: AdamWConfig,
@@ -60,11 +81,15 @@ def train_loop(cfg: ModelConfig, params, data_iter, opt_cfg: AdamWConfig,
     ``ckpt/save`` / ``ckpt/restore`` spans, a ``worker/lost`` instant
     before the :class:`WorkerLost` raise, and ``train.*`` metrics (steps,
     step-time histogram, loss/grad-norm gauges). Defaults are the
-    zero-overhead no-ops. ``sharding_ctx``/``state_axes`` (per-shard
-    checkpoints on a mesh) raise: ROADMAP.md queue 1 item 14.
+    zero-overhead no-ops.
+
+    ``sharding_ctx`` + ``state_axes`` (logical axes mirroring
+    ``{"params", "opt"}``) switch checkpointing to per-shard writes (each
+    rank of the mesh writes its own) and lay restored state out on the
+    current mesh — which may differ from the mesh the checkpoint was saved
+    under (elastic restart).
     """
-    if sharding_ctx is not None or state_axes is not None:
-        raise NotImplementedError(_ITEM_14)
+    save_kw = _save_kwargs(sharding_ctx, state_axes)
     tr = tracer if tracer is not None else NULL_TRACER
     reg = metrics_registry if metrics_registry is not None \
         else MetricsRegistry()
@@ -81,7 +106,8 @@ def train_loop(cfg: ModelConfig, params, data_iter, opt_cfg: AdamWConfig,
         if loop_cfg.ckpt_dir else None
     if ckpt is not None:
         t0 = tr.now()
-        restored = ckpt.restore_latest({"params": params, "opt": opt_state})
+        restored = ckpt.restore_latest({"params": params, "opt": opt_state},
+                                       ctx=sharding_ctx, axes=state_axes)
         if restored is not None:
             state, step0 = restored
             params, opt_state = state["params"], state["opt"]
@@ -120,7 +146,8 @@ def train_loop(cfg: ModelConfig, params, data_iter, opt_cfg: AdamWConfig,
                    f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} {dt*1e3:.0f}ms")
         if ckpt is not None and (step + 1) % loop_cfg.ckpt_every == 0:
             t0 = tr.now()
-            ckpt.save({"params": params, "opt": opt_state}, step + 1)
+            ckpt.save({"params": params, "opt": opt_state}, step + 1,
+                      **save_kw)
             c_saves.inc()
             tr.span("ckpt/save", t0, round_idx=step + 1, track=("train", 0),
                     step=step + 1)
@@ -134,7 +161,8 @@ def train_loop(cfg: ModelConfig, params, data_iter, opt_cfg: AdamWConfig,
     # rewrite genuine history
     if ckpt is not None and step0 < loop_cfg.total_steps:
         t0 = tr.now()
-        ckpt.save({"params": params, "opt": opt_state}, loop_cfg.total_steps)
+        ckpt.save({"params": params, "opt": opt_state}, loop_cfg.total_steps,
+                  **save_kw)
         c_saves.inc()
         tr.span("ckpt/save", t0, round_idx=loop_cfg.total_steps,
                 track=("train", 0), step=loop_cfg.total_steps)

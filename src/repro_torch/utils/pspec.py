@@ -38,6 +38,14 @@ def spec(shape, axes, init: str = "fan_in", scale: float = 1.0) -> ParamSpec:
     return ParamSpec(tuple(int(s) for s in shape), tuple(axes), init, scale)
 
 
+def logical_axes(specs: Tree) -> Tree:
+    """The tree of each leaf's logical axes (tuples), for
+    ``repro_torch.dist.sharding``."""
+    if isinstance(specs, ParamSpec):
+        return specs.axes
+    return {k: logical_axes(v) for k, v in specs.items()}
+
+
 def count_params(specs: Tree) -> int:
     if isinstance(specs, ParamSpec):
         return math.prod(specs.shape)

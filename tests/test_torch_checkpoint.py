@@ -230,7 +230,22 @@ def test_keep_collects_old_steps_and_ctx_raises(tmp_path):
     for s in (1, 2, 3):
         m.save(_tstate(s), s)
     assert m._complete_steps() == [2, 3]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        m.save(_tstate(4), 4, ctx=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        m.restore_latest(_tstate(0), ctx=object())
+    # ctx/axes: step 4 is cut into the reference's shard grid and the
+    # saved mesh recorded; it restores under another mesh's ctx bitwise
+    from repro_torch.dist.sharding import TRAIN_RULES as T_RULES
+    from repro_torch.dist.sharding import ShardingCtx as TCtx
+
+    axes = {"params": {"emb": ("embed", "heads"), "w": ("embed", "ffn")},
+            "step": ()}
+    m.save(_tstate(4), 4, ctx=TCtx(FakeMesh(("data", "model"), (4, 2)), T_RULES), axes=axes)
+    assert m._complete_steps() == [3, 4]
+    assert m.saved_mesh() == {"axes": ["data", "model"], "shape": [4, 2]}
+    manifest = json.load(open(os.path.join(m.dir, "step_00000004",
+                                           MANIFEST)))
+    assert [e["grid"] for e in manifest["leaves"]] == [[4, 2], [4, 2], []]
+    assert manifest["leaves"][0]["spec"] == [["data"], ["model"]]
+    restored, step = m.restore_latest(
+        _tstate(0), ctx=TCtx(FakeMesh(("data", "model"), (2, 2)), T_RULES), axes=axes)
+    assert step == 4
+    for a, b in zip(tree_flatten(restored)[0], tree_flatten(_tstate(4))[0]):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -65,7 +65,9 @@ def _entry_points():
                                   paradigms_sample, sequential_sample,
                                   srds_sample, uniform_tgrid)
     from repro_torch.diffusion import init_wrapper
+    from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import api, dense
     from repro_torch.serve import (ChordsEngine, ContinuousEngine,
                                    StreamingSampler)
@@ -95,6 +97,10 @@ def _entry_points():
             get_config("qwen1.5-0.5b", reduced=True)),
         "dense.init_cache": lambda: dense.init_cache(
             get_config("qwen1.5-0.5b", reduced=True), 1, 8),
+        "launch.mesh.make_mesh": lambda: launch_mesh.make_mesh(
+            (1, 1), ("data", "model")),
+        "launch.train --mesh": lambda: launch_train.main(
+            ["--arch", "qwen1.5-0.5b", "--reduced", "--mesh", "1x1"]),
     }
 
 
@@ -104,7 +110,8 @@ def _entry_points():
                                   "paradigms_sample", "srds_sample",
                                   "sequential_sample(heun)",
                                   "GaussianMixture.random", "api.init_model",
-                                  "dense.init_cache"])
+                                  "dense.init_cache", "launch.mesh.make_mesh",
+                                  "launch.train --mesh"])
 def test_entry_point_defaults_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the CUDA default is valid here")
@@ -193,3 +200,21 @@ def test_lm_slice_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert {"repro_torch.serve.steps", "repro_torch.models.moe"} <= \
         set(_port_modules())
+
+
+def test_mesh_modules_import_without_jax():
+    """The mesh slice's modules (sharding rules and DTensor layouts, the
+    int8 collectives, the device mesh, the kernels on local shards) import
+    no JAX and nothing of ``repro``, each in a fresh process."""
+    mods = ["repro_torch.dist.sharding", "repro_torch.dist.collectives",
+            "repro_torch.launch.mesh", "repro_torch.kernels.mesh"]
+    assert set(mods) <= set(_port_modules())
+    for m in mods:
+        code = (f"import sys, {m}\n"
+                "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro'))\n"
+                "print(bad)\nsys.exit(1 if bad else 0)\n")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (m, proc.stdout + proc.stderr)

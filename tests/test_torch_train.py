@@ -205,10 +205,42 @@ def test_state_layout_and_unported_paths():
                for w, p in zip(w32, tree_leaves(tp)))
     assert [tuple(x.shape) for x in tree_flatten(st["m"])[0]] == \
         [(4, 8), (16,), (2, 3)]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        topt.init_state(tp, topt.AdamWConfig(), grad_shards=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        topt.apply_updates(tp, tp, st, topt.AdamWConfig(), reduced_err=tp)
+    # grad_shards > 1: the residual takes a leading [W] groups dim, as the
+    # reference's; its logical axes lead with "groups"
+    jp = jax.tree_util.tree_map(jnp.asarray, tree_map(
+        lambda t: t.numpy(), tp))
+    for w in (1, 2):
+        cfg_c = topt.AdamWConfig(compress_grads=True)
+        st_w = topt.init_state(tp, cfg_c, grad_shards=w)
+        ref_w = jopt.init_state(jp, jopt.AdamWConfig(compress_grads=True),
+                                grad_shards=w)
+        assert [tuple(x.shape) for x in tree_leaves(st_w["err"])] == \
+            [tuple(x.shape) for x in jax.tree_util.tree_leaves(ref_w["err"])]
+    ax = {"a": ("embed", "ffn"), "b": (None,), "c": ("heads", None)}
+    assert topt.state_axes(ax, cfg_c, grad_shards=2) == \
+        jopt.state_axes(ax, jopt.AdamWConfig(compress_grads=True),
+                        grad_shards=2)
+    assert topt.state_axes(ax, topt.AdamWConfig()) == \
+        jopt.state_axes(ax, jopt.AdamWConfig())
+    # reduced_err: the wire collective's residual is carried as the new
+    # err and the local quantization model is skipped, as the reference's
+    cfg_c = topt.AdamWConfig(compress_grads=True)
+    grads = tree_map(lambda t: 0.5 * t, tp)
+    red = tree_map(lambda t: torch.full_like(t, 0.25), tp)
+    st_c = topt.init_state(tp, cfg_c)
+    new_p, new_s, _ = topt.apply_updates(tp, grads, st_c, cfg_c,
+                                         reduced_err=red)
+    ref_p, ref_s, _ = jopt.apply_updates(
+        jp, jax.tree_util.tree_map(lambda t: 0.5 * t, jp),
+        jopt.init_state(jp, jopt.AdamWConfig(compress_grads=True)),
+        jopt.AdamWConfig(compress_grads=True),
+        reduced_err=jax.tree_util.tree_map(
+            lambda t: jnp.full_like(t, 0.25), jp))
+    for a, b in zip(tree_leaves(new_s["err"]), tree_leaves(red)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(new_p), jax.tree_util.tree_leaves(ref_p)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
 
 
 @pytest.mark.parametrize("script,args,expect", [

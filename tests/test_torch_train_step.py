@@ -27,7 +27,8 @@ Inside the port: the step, which writes its update into the trees it is
 given (the reference launcher donates them), is bitwise the functional
 ``apply_updates`` on the same gradients; the microbatched step's
 gradients are f32 and the single-batch step's keep the parameter dtype;
-a mesh raises (ROADMAP item 14).
+``mesh=`` builds the mesh steps (their parity tests are
+``test_torch_mesh_steps.py``).
 """
 import functools
 
@@ -208,8 +209,17 @@ def test_gradient_dtypes():
 
 
 def test_mesh_raises():
+    """``mesh=`` builds the mesh step (the parity tests of it and of the
+    wire-compressed step are ``test_torch_mesh_steps.py``); the compressed
+    wire step takes one microbatch, as the reference's, and says so for
+    more."""
     _, tcfg, _, _ = _setup()
-    for compress in (False, True):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            make_train_step(tcfg, topt.AdamWConfig(compress_grads=compress),
-                            mesh=object())
+    assert callable(make_train_step(tcfg, topt.AdamWConfig(),
+                                    num_microbatches=2, mesh=object()))
+    with pytest.raises(NotImplementedError, match="num_microbatches == 1"):
+        make_train_step(tcfg, topt.AdamWConfig(compress_grads=True),
+                        num_microbatches=2, mesh=object())
+    with pytest.raises(NotImplementedError, match="num_microbatches == 1"):
+        j_make_train_step(j_get_config(ARCH, reduced=True),
+                          jopt.AdamWConfig(compress_grads=True),
+                          num_microbatches=2, mesh=object())

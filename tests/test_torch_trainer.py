@@ -24,7 +24,10 @@ for why).
 """
 import functools
 import importlib.util
+import os
 import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -242,19 +245,37 @@ def test_main_runs_the_single_device_flags(tmp_path):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                      "--mesh", "2x2"])
+    """``--mesh 2x2 --device cpu`` runs: the launcher spawns four gloo
+    ranks, the step runs on DTensors, and the checkpoints are cut into
+    the (2, 2) grid (the elastic re-mesh is ``test_torch_mesh_launch.py``)."""
+    import json
+    import tempfile
+
+    d = tempfile.mkdtemp()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+         "--reduced", "--device", "cpu", "--mesh", "2x2", "--steps", "2",
+         "--batch", "4", "--seq", "16", "--ckpt-dir", d, "--ckpt-every", "1"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[trainer] step=1" in proc.stdout and \
+        "[train] final loss" in proc.stdout
+    with open(os.path.join(d, "step_00000002", "MANIFEST")) as f:
+        manifest = json.load(f)
+    assert manifest["mesh"] == {"axes": ["data", "model"], "shape": [2, 2]}
+    assert [2, 2] in [e["grid"][-2:] for e in manifest["leaves"]]
 
 
 def test_chips_per_host_raises():
-    """More than one chip a host is the mesh plan's (item 14): the flag
-    and ``elastic_train``'s argument raise instead of being ignored."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """More than one chip a host only sizes a mesh's elastic plan: without
+    ``--mesh`` the flag and ``elastic_train``'s argument raise instead of
+    being ignored."""
+    with pytest.raises(ValueError, match="without a mesh"):
         tlaunch.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                       "--chips-per-host", "4"])
     cfg = get_config(ARCH, reduced=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="without a mesh"):
         tlaunch.elastic_train(cfg, _tparams(), None, None, None,
                               step_factory=None, chips_per_host=4)
 
