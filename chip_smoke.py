@@ -183,7 +183,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
               tensors against the same ranks' CPU run. A DTensor on a
               CUDA mesh over gloo kills the rank
               (``benchmarks/torch_gloo_cuda_probe.py``), so no mesh step
-              runs there.
+              runs there;
+22. serve-mesh, hybrid-serve-mesh — serving on a device mesh: a (1, 1)
+              NCCL ``DeviceMesh`` under ``SERVE_RULES``, the wrapper's
+              parameters laid out by ``distribute_tree``; the launcher
+              defaults (K=8, S=4, N=50, rtol 0.05, FIFO) with the
+              launcher's 8 requests **cut to 4**, through the one-device
+              engine and the mesh engine (CUDA graphs over the DTensor
+              state's local blocks) at R = 1 and R = 8: samples, rounds and
+              accepted cores bitwise, every kernel's device-counted
+              launches equal, the slot grid's latents DTensors, no
+              redistribute around a kernel; one ``ChordsEngine`` batch
+              (the stream program, its cores on ``data``) bitwise the
+              same; s a round of both, and the mesh's profiled round
+              (host ms, device ms, idle share).
+              ``chords-dit-xl`` (full width and depth) and ``zamba2-2.7b``
+              (full widths, 12 layers: ``ssd_chunk`` on local shards).
+              Phase 18 adds ``gemma-7b``'s prefill and 8 greedy decode
+              steps on the mesh beside the one-device run (tokens and
+              logits bitwise, launches equal; ms a prefill, ms a decode
+              step, tokens/s of both).
 
 On the card every serving engine runs on CUDA graphs (``serve/graphs.py``)
 unless a phase asks for the eager programs. Launch counts are taken by the
@@ -199,6 +218,7 @@ the ``nvidia-smi`` name and power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -211,7 +231,8 @@ PHASES = ("device", "build", "kernels", "parity", "drift", "serve",
           "overlap-serve", "device-loop", "elastic-serve", "lane-serve",
           "stream-loop", "baselines", "ssd", "hybrid-drift", "hybrid-serve",
           "hybrid-device-loop", "hybrid-elastic-serve", "hybrid-lane-serve",
-          "train-denoiser", "lm-generate", "lm-train", "lm-train-mesh")
+          "train-denoiser", "lm-generate", "lm-train", "lm-train-mesh",
+          "serve-mesh", "hybrid-serve-mesh")
 # depth of the hybrid's elastic and lane paths (full widths; 2 of its 9
 # groups of 6 Mamba2 layers and a shared attention block)
 HYBRID_PATHS_LAYERS = 12
@@ -2545,6 +2566,172 @@ def _check_served(done, count, n, shape):
 
 
 
+# -- serving on a device mesh ------------------------------------------------
+
+MESH_REQUESTS = 4  # the launcher's 8 requests, cut for the smoke's time
+
+
+@contextlib.contextmanager
+def _nccl_mesh():
+    """A (1, 1) NCCL ``DeviceMesh`` ("data", "model") over a world of one
+    rank; the process group is torn down after the block."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    _world_one_nccl()
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_on(drift, tgrid, n, k, s, rtol, r_dev, ctx):
+    """The first MESH_REQUESTS launcher requests through one engine (built
+    and run under ``ctx``): (results, stats, wall s, launch counts,
+    redistributes, engine)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import mesh as kmesh
+    from repro_torch.serve import Request
+    with ctx:
+        engine = _engine(drift, tgrid, n, k, s, policy="fifo", rtol=rtol)
+        for i in range(MESH_REQUESTS):
+            engine.submit(Request(rid=i, seed=100 + i))
+        kmesh.REDISTRIBUTES.clear()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            done = engine.run_until_drained(max_rounds_on_device=r_dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (done, _stats(engine), wall, launch_counts(),
+                dict(kmesh.REDISTRIBUTES), engine)
+
+
+def _static_mesh(one_drift, mesh_drift, tgrid, n, k, s, rtol, mesh, phase):
+    """One ``ChordsEngine`` batch (the stream program, cores on ``data``)
+    of MESH_REQUESTS requests on one device and on the mesh, each engine's
+    graph built by a warm-up batch first: samples, rounds and cores
+    bitwise, launches equal."""
+    import torch
+    from repro_torch.dist.sharding import SERVE_RULES, use_sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import ChordsEngine, Request
+    runs = {}
+    for name, drift, ctx in (("one", one_drift, contextlib.nullcontext()),
+                             ("mesh", mesh_drift,
+                              use_sharding(mesh, SERVE_RULES))):
+        with ctx, torch.no_grad():
+            eng = ChordsEngine(drift, (64, 16), n, k, tgrid, max_batch=s,
+                               rtol=rtol, use_kernel=True, device="cuda")
+            eng.submit(Request(rid=-1, seed=199))
+            eng.step()  # builds the stream graph
+            for i in range(MESH_REQUESTS):
+                eng.submit(Request(rid=i, seed=200 + i))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            done = dict(eng.step())
+            torch.cuda.synchronize()
+            runs[name] = (done, time.perf_counter() - t0, launch_counts(),
+                          eng.stats[-1]["rounds"],
+                          type(eng.sampler.program).__name__)
+    (d1, w1, c1, r1, _), (d2, w2, c2, r2, prog) = runs["one"], runs["mesh"]
+    for rid, o in d1.items():
+        m = d2[rid]
+        if (m.rounds_used, m.accepted_core) != (o.rounds_used,
+                                                o.accepted_core) \
+                or not torch.equal(m.sample, o.sample):
+            raise AssertionError(f"{phase}/static: request {rid} on the "
+                                 f"mesh is not the one-device run's")
+    if c2 != c1 or r2 != r1 or not c2["fused_step_rectify"]:
+        raise AssertionError(f"{phase}/static: launches {c2} in {r2} "
+                             f"rounds, one device {c1} in {r1}")
+    return dict(requests=MESH_REQUESTS, rounds=r2, program=prog,
+                s_per_round_one=w1 / r1, s_per_round_mesh=w2 / r2,
+                launches=c2, samples_bitwise=True)
+
+
+def phase_serve_mesh(cfg, params, phase="serve-mesh"):
+    """Serving on a (1, 1) NCCL mesh under ``SERVE_RULES`` against one
+    device, at R = 1 and R = 8 (module docstring, phase 22). Returns the
+    mesh runs' launches."""
+    import torch
+    from repro_torch.core import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.diffusion.wrapper import wrapper_specs
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree, is_dtensor,
+                                           use_sharding)
+    from repro_torch.utils import pspec
+    n, k, s, rtol = 50, 8, 4, 0.05
+    tgrid = uniform_tgrid(n, device="cuda")
+    ucfg = cfg.replace(use_kernels=True)
+    per_call = per_call_launches(cfg)
+    totals = dict.fromkeys(SOURCES, 0)
+    out = {}
+    with _nccl_mesh() as mesh:
+        dparams = distribute_tree(params, ShardingCtx(mesh, SERVE_RULES),
+                                  pspec.logical_axes(wrapper_specs(cfg, 16)))
+        one_drift = make_drift(params, ucfg)
+        mesh_drift = make_drift(dparams, ucfg)
+        for r_dev in (1, 8):
+            d1, s1, w1, c1, _, e1 = _serve_on(
+                one_drift, tgrid, n, k, s, rtol, r_dev,
+                contextlib.nullcontext())
+            d2, s2, w2, c2, red, e2 = _serve_on(
+                mesh_drift, tgrid, n, k, s, rtol, r_dev,
+                use_sharding(mesh, SERVE_RULES))
+            _check_served(d2, MESH_REQUESTS, n, (1, 64, 16))
+            one, on_mesh = dict(d1), dict(d2)
+            for rid, o in one.items():
+                m = on_mesh[rid]
+                if (m.rounds_used, m.accepted_core) != \
+                        (o.rounds_used, o.accepted_core) \
+                        or not torch.equal(m.sample, o.sample):
+                    raise AssertionError(
+                        f"{phase} R={r_dev}: request {rid} on the mesh "
+                        f"({m.rounds_used}, core {m.accepted_core}) is not "
+                        f"the one-device run's ({o.rounds_used}, core "
+                        f"{o.accepted_core}) bit for bit")
+            if c2 != c1 or s2["rounds_total"] != s1["rounds_total"]:
+                raise AssertionError(f"{phase} R={r_dev}: launches {c2} in "
+                                     f"{s2['rounds_total']} rounds, one "
+                                     f"device {c1} in {s1['rounds_total']}")
+            missing = [nm for nm, c in per_call.items() if c and not c2[nm]]
+            if missing or red or not is_dtensor(e2.state.carry.x):
+                raise AssertionError(f"{phase} R={r_dev}: kernels not "
+                                     f"launched {missing}, redistributes "
+                                     f"{red}, state "
+                                     f"{type(e2.state.carry.x).__name__}")
+            rounds = s2["rounds_total"]
+            out[f"R{r_dev}"] = dict(
+                requests=MESH_REQUESTS, rounds=rounds,
+                programs=e2.executor.programs, host_syncs=s2["host_syncs"],
+                s_per_round_one=w1 / rounds, s_per_round_mesh=w2 / rounds,
+                launches=c2, launches_per_round={
+                    nm: c / rounds for nm, c in c2.items() if c},
+                samples_bitwise=True, redistributes=red,
+                sharding=e2.spec.sharding is not None,
+                local_latent=list(e2.state.carry.x.to_local().shape))
+            totals = {nm: totals[nm] + c2[nm] for nm in totals}
+            del e1, e2
+        out["static"] = _static_mesh(one_drift, mesh_drift, tgrid, n, k, s,
+                                     rtol, mesh, phase)
+        totals = {nm: totals[nm] + out["static"]["launches"][nm]
+                  for nm in totals}
+        with use_sharding(mesh, SERVE_RULES):
+            prof = profile_rounds(mesh_drift, tgrid, n, k, s,
+                                  phase + "/profile", per_call)
+        out["profile"] = {key: prof[key] for key in (
+            "wall_ms_per_round", "host_ms_per_round", "device_ms_per_round",
+            "device_idle_share", "kernels_per_round", "programs")}
+        del dparams, one_drift, mesh_drift
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, card=CARD[0], **out)
+    torch.cuda.empty_cache()
+    return totals
+
+
 # -- the sample-and-train slice: stream loop, baselines, training -------------
 
 def _static_run(drift, tgrid, n, k, rtol, eager, seeds, profile=False):
@@ -3279,9 +3466,92 @@ def _lm_full(arch):
         seconds_by_part=dict(zip(("three_generations", "prefill_timing",
                                   "decode_profile"),
                                  (b - a for a, b in zip(marks, marks[1:])))))
+    if arch == LM_MESH_ARCH:
+        t0 = time.perf_counter()
+        rec["mesh"] = dict(_lm_mesh(cfg, params, prompt),
+                           seconds=time.perf_counter() - t0)
     del params, run, again
     torch.cuda.empty_cache()
     return rec
+
+
+LM_MESH_ARCH = "gemma-7b"   # served again on the (1, 1) mesh
+LM_SERVE_MESH_STEPS = 8     # greedy decode steps of the mesh comparison
+
+
+def _lm_mesh_run(cfg, params, prompt):
+    """Prefill and LM_SERVE_MESH_STEPS greedy decode steps: last-position
+    logits (read whole), tokens, ms a prefill and each decode step (CUDA
+    synchronized), launches and the cache's leaf types."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import make_decode_step, make_prefill
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    prefill, dec = make_prefill(cfg, LM_MAX_LEN), make_decode_step(cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, prompt)
+        last = whole(logits)[:, -1:].clone()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        outs, toks, step_ms = [last], [], []
+        for _ in range(LM_SERVE_MESH_STEPS):
+            tok = torch.argmax(outs[-1], dim=-1).to(torch.int32)
+            toks.append(tok)
+            t0 = time.perf_counter()
+            logits, cache = dec(params, tok, cache)
+            outs.append(whole(logits).clone())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(logits=outs, tokens=torch.cat(toks, dim=1),
+                prefill_ms=prefill_ms, step_ms=sorted(step_ms),
+                launches=launch_counts(),
+                cache={k: type(v).__name__ for k, v in cache.items()})
+
+
+def _lm_mesh(cfg, params, prompt):
+    """``cfg``'s prefill and greedy decode on a (1, 1) NCCL mesh under
+    ``SERVE_RULES`` against one device (warm: ``_lm_full`` ran it), the
+    mesh twice (the first warms DTensor's sharding propagation; the second
+    is timed and compared): tokens and logits bitwise, launches equal."""
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree, use_sharding)
+    from repro_torch.models import api
+    from repro_torch.utils import pspec
+    one = _lm_mesh_run(cfg, params, prompt)
+    with _nccl_mesh() as mesh:
+        dp = distribute_tree(params, ShardingCtx(mesh, SERVE_RULES),
+                             pspec.logical_axes(api.model_specs(cfg)))
+        with use_sharding(mesh, SERVE_RULES):
+            _lm_mesh_run(cfg, dp, prompt)
+            on_mesh = _lm_mesh_run(cfg, dp, prompt)
+        del dp
+    import torch
+    if not torch.equal(on_mesh["tokens"], one["tokens"]) or not all(
+            torch.equal(a, b) for a, b in zip(on_mesh["logits"],
+                                              one["logits"])):
+        raise AssertionError(f"{cfg.name}: the mesh's tokens or logits are "
+                             f"not the one-device run's bit for bit")
+    if on_mesh["launches"] != one["launches"] \
+            or set(on_mesh["cache"].values()) != {"DTensor", "Tensor"}:
+        raise AssertionError(f"{cfg.name}: mesh launches "
+                             f"{on_mesh['launches']} (one device "
+                             f"{one['launches']}), cache {on_mesh['cache']}")
+
+    def times(run):
+        med = run["step_ms"][len(run["step_ms"]) // 2]
+        return dict(prefill_ms=run["prefill_ms"], decode_ms_per_step=med,
+                    decode_tokens_per_s=LM_BATCH * 1e3 / med)
+
+    return dict(steps=LM_SERVE_MESH_STEPS, tokens_bitwise=True,
+                logits_bitwise=True, launches=on_mesh["launches"],
+                cache=on_mesh["cache"], one=times(one),
+                mesh=times(on_mesh))
 
 
 def _lm_card_vs_cpu(arch):
@@ -4159,7 +4429,11 @@ SERVE_KERNELS = {"serve": _CONTINUOUS | {"fused_step_rectify"},
                  "train-denoiser": {"rmsnorm", "flash_attention"},
                  "lm-generate": {"rmsnorm", "flash_attention", "ssd_chunk"},
                  "lm-train": {"rmsnorm", "flash_attention"},
-                 "lm-train-mesh": {"rmsnorm", "flash_attention"}}
+                 "lm-train-mesh": {"rmsnorm", "flash_attention"},
+                 "serve-mesh": _CONTINUOUS | {"device_loop",
+                                              "fused_step_rectify"},
+                 "hybrid-serve-mesh": _CONTINUOUS | {
+                     "device_loop", "ssd_chunk", "fused_step_rectify"}}
 
 
 def main(argv=None) -> int:
@@ -4205,7 +4479,8 @@ def main(argv=None) -> int:
                                         ("device-loop", phase_device_loop),
                                         ("elastic-serve",
                                          phase_elastic_serve),
-                                        ("lane-serve", phase_lane_serve)),
+                                        ("lane-serve", phase_lane_serve),
+                                        ("serve-mesh", phase_serve_mesh)),
              {}),
             ("zamba2-2.7b", "hybrid-drift", (("hybrid-serve", phase_serve),
                                              ("hybrid-device-loop",
@@ -4214,7 +4489,8 @@ def main(argv=None) -> int:
             # HYBRID_PATHS_LAYERS layers for the smoke's time
             ("zamba2-2.7b", None, (("hybrid-elastic-serve",
                                     phase_elastic_serve),
-                                   ("hybrid-lane-serve", phase_lane_serve)),
+                                   ("hybrid-lane-serve", phase_lane_serve),
+                                   ("hybrid-serve-mesh", phase_serve_mesh)),
              {"num_layers": HYBRID_PATHS_LAYERS}),
             ("chords-dit-xl", None, (("stream-loop", phase_stream_loop),
                                      ("baselines", phase_baselines)), {})):

@@ -21,6 +21,18 @@ gates an Euler double step once the trajectory settles. Both are
 leaves the device inside a round, and all-false gates give the
 homogeneous round bitwise. :func:`gather_slots` copies whole lanes between
 grids of different slot counts (elastic resize).
+
+On a mesh (an ambient ``use_sharding`` context and DTensor state) the
+reference's ``vmap_logical`` sites hold its meaning: the slot round is
+lifted over ``slots`` and runs on each rank's block of slots
+(``dist.sharding.on_blocks``), and the drift is lifted over ``cores``, its
+rows put back on the mesh (``lift_rows``, rows slot-major, Shard(0) on the
+slots' mesh axes) so that its parameters are tensor-parallel over the
+others. Where no slot axis takes a mesh axis (:func:`make_round_body`:
+``chords_sample``, the stream program) the cores ride it instead: each
+rank runs its block of cores, and the inter-core rolls become ring shifts
+that move one boundary core a rank (``roll_blocks``), the counterpart of
+the reference's collective-permute.
 """
 from __future__ import annotations
 
@@ -34,6 +46,8 @@ from repro_torch.core import scheduler
 from repro_torch.core.ode import DriftFn
 from repro_torch.core.rectify import coarse_smooth
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (block_offset, lift_rows, on_blocks,
+                                       roll_blocks, vmap_logical)
 
 # EMA weight of the per-lane stability statistic (relative drift-norm
 # delta): ~2 rounds of memory. The skip threshold is per request
@@ -145,17 +159,19 @@ def _make_round_step(drift: DriftFn, tgrid, n: int, k: int,
     """
     from repro_torch.kernels.rectify.ops import (step_rectify,
                                                  step_rectify_accept)
-    k0 = torch.arange(k, device=tgrid.device)
+    k_all = torch.arange(k, device=tgrid.device)
+    vdrift = vmap_logical(lift_rows(drift), "cores")
 
     def _common(carry: ChordsCarry, i_arr, r):
         x, x_snap, f_snap, p, finals = carry
-        g = x.shape[0]
-        cur, nxt = scheduler.positions(i_arr, r)        # [G, K]
+        g, kl = x.shape[0], x.shape[1]  # kl: this rank's cores
+        k0 = _core_ids(k_all, kl)
+        cur, nxt = _positions(i_arr, r, kl)             # [G, K]
         alive = cur <= n - 1
         t_cur = tgrid[cur.clamp(0, n).long()]
         t_nxt = tgrid[nxt.clamp(0, n).long()]
-        f = drift(x.reshape((g * k,) + x.shape[2:]),
-                  t_cur.reshape(g * k)).reshape(x.shape)
+        f = vdrift(x.reshape((g * kl,) + x.shape[2:]),
+                   t_cur.reshape(g * kl)).reshape(x.shape)
 
         # snapshot refresh: core is sitting exactly on its snapshot position
         at_snap = (cur == p) & alive
@@ -163,9 +179,9 @@ def _make_round_step(drift: DriftFn, tgrid, n: int, k: int,
         f_snap = torch.where(bmask(at_snap, f), f, f_snap)
 
         # rectification: previous core sits on this core's snapshot position
-        x_up = torch.roll(x, 1, dims=1)
-        f_up = torch.roll(f, 1, dims=1)
-        cur_up = torch.roll(cur, 1, dims=1)
+        x_up = roll_blocks(x, 1, 1, "cores")
+        f_up = roll_blocks(f, 1, 1, "cores")
+        cur_up = roll_blocks(cur, 1, 1, "cores")
         fire = (k0 > 0) & (cur_up == p) & alive
         t_p = tgrid[p.clamp(0, n).long()]
         return (x, x_snap, f_snap, p, finals, f, x_up, f_up,
@@ -199,10 +215,25 @@ def _make_round_step(drift: DriftFn, tgrid, n: int, k: int,
         new_carry, emitted = _finish(x, x_new.reshape(x.shape), x_snap,
                                      f_snap, p, finals, nxt, alive, fire)
         g = x.shape[0]
-        return new_carry, (emitted, err_sq.reshape(g, k),
-                           out_sq.reshape(g, k))
+        return new_carry, (emitted, err_sq.reshape(g, -1),
+                           out_sq.reshape(g, -1))
 
     return step_accept if fuse_accept else step
+
+
+def _core_ids(k_all, kl: int):
+    """Global indices of this rank's ``kl`` cores (all K off a mesh)."""
+    return k_all.narrow(0, block_offset("cores", kl), kl)
+
+
+def _positions(i_arr, r, kl: int):
+    """``scheduler.positions`` of every core (a core's position reads the
+    whole init sequence), narrowed to this rank's ``kl`` cores."""
+    cur, nxt = scheduler.positions(i_arr, r)
+    if cur.shape[-1] == kl:
+        return cur, nxt
+    off = block_offset("cores", kl)
+    return cur.narrow(-1, off, kl), nxt.narrow(-1, off, kl)
 
 
 def _check_profile(profile, k: int) -> int:
@@ -248,15 +279,20 @@ def _make_lane_round_step(drift: DriftFn, tgrid, n: int, k: int,
     profile = tuple(profile)
     factor = _check_profile(profile, k)
     dev = tgrid.device
-    draft_role = torch.tensor([sp.role == "draft" for sp in profile],
-                              device=dev)
-    skip_role = torch.tensor([bool(sp.skip) for sp in profile], device=dev)
-    k0 = torch.arange(k, device=dev)
+    draft_all = torch.tensor([sp.role == "draft" for sp in profile],
+                             device=dev)
+    skip_all = torch.tensor([bool(sp.skip) for sp in profile], device=dev)
+    k_all = torch.arange(k, device=dev)
+    vdrift = vmap_logical(lift_rows(drift), "cores")
 
     def _common(carry: ChordsCarry, lanes: LaneState, i_arr, r):
         x, x_snap, f_snap, p, finals = carry
-        g = x.shape[0]
-        base_cur, base_nxt = scheduler.positions(i_arr, r)   # [G, K]
+        g, kl = x.shape[0], x.shape[1]  # kl: this rank's cores
+        off = block_offset("cores", kl)
+        k0 = k_all.narrow(0, off, kl)
+        draft_role = draft_all.narrow(0, off, kl)
+        skip_role = skip_all.narrow(0, off, kl)
+        base_cur, base_nxt = _positions(i_arr, r, kl)        # [G, K]
         cur = base_cur + lanes.pos
         nxt = base_nxt + lanes.pos
         alive = cur <= n - 1
@@ -265,8 +301,8 @@ def _make_lane_round_step(drift: DriftFn, tgrid, n: int, k: int,
         # draft lanes: drift of/at the coarse-smoothed latent (one eval)
         draft_m = draft_role & lanes.draft_on[:, None] & alive
         x_eval = torch.where(bmask(draft_m, x), coarse_smooth(x, factor), x)
-        f_raw = drift(x_eval.reshape((g * k,) + x.shape[2:]),
-                      t_cur.reshape(g * k)).reshape(x.shape)
+        f_raw = vdrift(x_eval.reshape((g * kl,) + x.shape[2:]),
+                       t_cur.reshape(g * kl)).reshape(x.shape)
         f = torch.where(bmask(draft_m, f_raw), coarse_smooth(f_raw, factor),
                         f_raw)
 
@@ -288,15 +324,15 @@ def _make_lane_round_step(drift: DriftFn, tgrid, n: int, k: int,
         f_snap = torch.where(bmask(at_snap, f), f, f_snap)
 
         # rectification: previous core sits on this core's snapshot position
-        x_up = torch.roll(x, 1, dims=1)
-        f_up = torch.roll(f, 1, dims=1)
-        cur_up = torch.roll(cur, 1, dims=1)
+        x_up = roll_blocks(x, 1, 1, "cores")
+        f_up = roll_blocks(f, 1, 1, "cores")
+        cur_up = roll_blocks(cur, 1, 1, "cores")
         fire = (k0 > 0) & (cur_up == p) & alive
 
         # stability-gated double step (fine phase only; nxt < n keeps the
         # hop in grid; hopping p or p_down would strand a snapshot position)
         fine = r[:, None] > k0
-        p_down = torch.roll(p, -1, dims=1)
+        p_down = roll_blocks(p, -1, 1, "cores")
         tau = lanes.skip_tau[:, None]
         skip = (skip_role & (tau > 0.0) & (stab < tau) & fine & alive
                 & ~fire & (nxt < n) & (cur + 1 != p) & (cur + 1 != p_down))
@@ -342,8 +378,8 @@ def _make_lane_round_step(drift: DriftFn, tgrid, n: int, k: int,
         new_carry, emitted = _finish(x, x_new.reshape(x.shape), x_snap,
                                      f_snap, p, finals, nxt, alive, fire)
         g = x.shape[0]
-        return (new_carry, new_lanes), (emitted, err_sq.reshape(g, k),
-                                        out_sq.reshape(g, k))
+        return (new_carry, new_lanes), (emitted, err_sq.reshape(g, -1),
+                                        out_sq.reshape(g, -1))
 
     return step_accept if fuse_accept else step
 
@@ -354,19 +390,28 @@ def make_round_body(drift: DriftFn, tgrid, i_arr, n: int, k: int,
     the batch sampler and the streaming engine). carry = ChordsCarry with
     ``[K, ...]`` leaves; ``r`` is the round: a Python int or a 0-d int32
     tensor on the device (the stream program's counter, which never comes
-    back to the host)."""
-    step = _make_round_step(drift, tgrid, n, k, use_kernel=use_kernel)
-    i_g = torch.as_tensor(i_arr, dtype=torch.int32,
-                          device=tgrid.device)[None]
+    back to the host).
 
-    def round_body(carry: ChordsCarry, r):
+    On a mesh (DTensor carry under ``use_sharding``) the cores axis takes
+    its mesh axis: each rank runs its block of cores and the rolls move
+    one boundary core to the next rank (:func:`dist.sharding.on_blocks`,
+    ``roll_blocks``); the outputs lead with the cores, laid out so."""
+    step = _make_round_step(drift, tgrid, n, k, use_kernel=use_kernel)
+    i_all = torch.as_tensor(i_arr, dtype=torch.int32, device=tgrid.device)
+
+    def local_round(carry: ChordsCarry, i_seq, r):
         grid = ChordsCarry(*(t[None] for t in carry))
         r_g = torch.as_tensor(r, dtype=torch.int32,
                               device=tgrid.device).reshape(1)
-        new, emitted = step(grid, i_g, r_g)
+        new, emitted = step(grid, i_seq[None], r_g)
         new_carry = ChordsCarry(*(t[0] for t in new))
         trace = new_carry.x if collect_trace else emitted[0]
         return new_carry, trace
+
+    blocked = on_blocks(local_round, "cores", in_axes=(0, None, None))
+
+    def round_body(carry: ChordsCarry, r):
+        return blocked(carry, i_all, r)
 
     return round_body
 
@@ -387,7 +432,17 @@ def make_slot_round_body(drift: DriftFn, tgrid, n: int, k: int,
     carry in second position of both signatures,
     ``lane_round(carry, lanes, i_arr, r, live[, prev]) -> (carry, lanes,
     emitted[, err_sq, out_sq])``, and dead lanes freeze it too.
+
+    Every argument and output leads with the slots, and the round is
+    lifted over them (``vmap_logical(..., "slots")``): on a mesh each rank
+    runs its own slots.
     """
+    return vmap_logical(_slot_round_body(drift, tgrid, n, k, use_kernel,
+                                         fuse_accept, lane_profile), "slots")
+
+
+def _slot_round_body(drift, tgrid, n, k, use_kernel, fuse_accept,
+                     lane_profile):
     def _freeze(new, old, live):
         return type(old)(*(torch.where(bmask(live, a), a, b)
                            for a, b in zip(new, old)))

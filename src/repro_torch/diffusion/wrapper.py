@@ -22,7 +22,11 @@ against 8 or 32 on the H100; one ulp of the time embedding then flips
 bf16 roundings downstream), and the engines' bitwise contracts (overlap
 against sync, elastic against a fixed grid) failed for requests that ran
 rounds at another grid size. Every piece has one shape, so a row's bits
-do not depend on how many rows share the call.
+do not depend on how many rows share the call. On a mesh (DTensor rows,
+split over the slots' or cores' mesh axes) the pieces are cut from each
+rank's own rows (``kernels/mesh.py::local_shards``): slicing and joining
+the global rows would gather them, and a row's bits do not depend on its
+neighbours, so the result is the one-device result.
 
 Training: :func:`diffusion_loss` is the rectified-flow loss, drawing its
 times and noise from a ``torch.Generator``; :func:`diffusion_loss_from`
@@ -40,6 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import is_dtensor
+from repro_torch.kernels import mesh as kmesh
 from repro_torch.models import api as model_api
 from repro_torch.utils.pspec import ParamTree, init_params, spec
 from repro_torch.utils.tree import requires_grad
@@ -101,7 +107,12 @@ def row_product(x, w, piece_rows: int):
     of ``piece_rows`` rows, the last one padded with zero rows, so every
     GEMM has the same shape and a row's bits do not depend on the rows
     beside it (the card's f32 GEMM is chosen by shape). The pieces are
-    joined by ``cat``, so it differentiates."""
+    joined by ``cat``, so it differentiates. A DTensor ``x`` runs on each
+    rank's rows, the contracted dim whole."""
+    if is_dtensor(x):
+        return kmesh.local_shards(
+            "row_product", lambda a, b: row_product(a, b, piece_rows),
+            (x, w), whole=((-1,), (0, 1)))
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
     n = x2.shape[0]
@@ -119,15 +130,25 @@ def out_project(hf, w):
     return row_product(hf, w, OUT_PIECE_ROWS)
 
 
+def _time_mlp(t, w1, w2):
+    """t: scalar or [B] -> the time embedding's MLP features [(B,) d]."""
+    te = time_embedding(t)  # [256]/[B,256]
+    te = F.silu(row_product(te, w1, TIME_PIECE_ROWS))
+    return row_product(te, w2, TIME_PIECE_ROWS)
+
+
 def denoise(params, cfg: ModelConfig, x, t):
     """x: [B, S, latent_dim]; t: scalar or [B] in [0, 1] (per-row times).
     Returns the velocity [B, S, latent_dim] in x's dtype."""
     dt_ = getattr(torch, cfg.compute_dtype)
     f32 = torch.float32
     h = torch.einsum("bsl,ld->bsd", x.to(dt_), params["in_proj"].to(dt_))
-    te = time_embedding(torch.as_tensor(t, device=x.device))  # [256]/[B,256]
-    te = F.silu(row_product(te, params["t_mlp1"].to(f32), TIME_PIECE_ROWS))
-    te = row_product(te, params["t_mlp2"].to(f32), TIME_PIECE_ROWS)
+    w1, w2 = params["t_mlp1"].to(f32), params["t_mlp2"].to(f32)
+    if is_dtensor(t):  # per-row times on a mesh: each rank's rows
+        te = kmesh.local_shards("time_mlp", _time_mlp, (t, w1, w2),
+                                whole=((), (0, 1), (0, 1)))
+    else:
+        te = _time_mlp(torch.as_tensor(t, device=x.device), w1, w2)
     if te.ndim == 2:
         te = te[:, None, :]
     h = h + te.to(dt_)

@@ -124,6 +124,25 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def ring_shift(x: torch.Tensor, step: int, group) -> torch.Tensor:
+    """``x`` sent to the rank ``step`` places on in ``group``'s order (a
+    ring); returns what the rank ``step`` places back sent. The roll over
+    a blocked axis (``sharding.roll_blocks``) moves its boundary slab
+    through it: the counterpart of XLA's collective-permute."""
+    w = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (r + step) % w)
+    src = dist.get_global_rank(group, (r - step) % w)
+    out = torch.empty_like(x)
+    _count("permute", x)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x.contiguous(), dst, group),
+        dist.P2POp(dist.irecv, out, src, group)])
+    for req in reqs:
+        req.wait()
+    return out
+
+
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """In-place max of a (scalar) tensor over ``group``."""
     _count("all_reduce_max", x)

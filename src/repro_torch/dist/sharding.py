@@ -28,8 +28,17 @@ and on a plain tensor, it is a strict no-op, so every one-device path (CUDA
 graph capture included) runs as before.
 
 ``vmap_logical``: the port runs its grids batched, so there is no vmap to
-lift; it only registers the lifted logical axis so that interior
-``shard_act`` calls reserve its mesh axes, and calls ``fn``.
+lift. It registers the lifted logical axis so that interior ``shard_act``
+calls reserve its mesh axes, and where that axis rides a mesh axis of the
+ambient context and the arguments are DTensors, it runs ``fn`` on each
+rank's block of the axis (:func:`on_blocks`): a vmap over a sharded axis
+is independent per block, which is what the JAX package's
+``spmd_axis_name`` vmap compiles to. Inside such a region the tensors are
+plain local blocks, so ops that DTensor has no strategy for (``roll``,
+broadcast masks, indexing by a tensor) run as on one device;
+:func:`lift_rows` puts the rows of a call that must be tensor-parallel
+(the drift) back on the mesh, and :func:`roll_blocks` is the roll over a
+blocked axis, the boundary element moved to the next rank.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ import contextlib
 import itertools
 import math
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 Rule = Union[str, Tuple[str, ...], None]
 Rules = Dict[str, Rule]
@@ -315,6 +324,12 @@ def is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def whole(t):
+    """A DTensor's full value (a collective: every rank of its mesh calls
+    it); anything else as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def distribute_tree(tree: Any, ctx: ShardingCtx, axes: Any) -> Any:
     """Each leaf of ``tree`` (full tensors, the same on every rank of
     ``ctx.mesh``) as a DTensor laid out by its logical axes. Each rank
@@ -423,17 +438,335 @@ def _reserved_axes(ctx: ShardingCtx) -> Tuple[str, ...]:
 
 def vmap_logical(fn, logical_axis: str, in_axes=0, out_axes=0):
     """The reference's vmap over a named logical axis. ``fn`` here is
-    already batched over that axis (the port runs grids batched), so the
-    call only registers the axis so that interior ``shard_act`` calls
-    reserve its mesh axes; ``in_axes``/``out_axes`` are accepted for the
-    reference's signature."""
-    del in_axes, out_axes
+    already batched over that axis (the port runs grids batched): the call
+    registers the axis so that interior ``shard_act`` calls reserve its
+    mesh axes and, on DTensor arguments whose axis rides the mesh, runs
+    ``fn`` on each rank's block of it (:func:`on_blocks`; ``in_axes`` 0 or
+    None per argument, as there). ``out_axes`` is accepted for the
+    reference's signature: outputs lead with the lifted axis."""
+    del out_axes
 
     def call(*args):
         with vmapped_axes(logical_axis):
-            return fn(*args)
+            return on_blocks(fn, logical_axis, in_axes)(*args)
 
     return call
+
+
+# --- per-rank blocks of a lifted axis ----------------------------------------
+
+class Block(NamedTuple):
+    """One active :func:`on_blocks` region: the rows of ``axis`` that this
+    rank runs, the ``index``-th of ``ways`` equal blocks along the mesh
+    axes ``mesh_axes`` (``placements``: Shard(0) on those mesh dims,
+    Replicate on the others)."""
+
+    mesh: Any
+    axis: str
+    mesh_axes: Tuple[str, ...]
+    placements: tuple
+    index: int
+    ways: int
+
+
+def _block_stack() -> list:
+    st = getattr(_local, "blocks", None)
+    if st is None:
+        st = _local.blocks = []
+    return st
+
+
+def current_block(axis: Optional[str] = None) -> Optional[Block]:
+    """The innermost active block region (of logical ``axis`` if given)."""
+    for b in reversed(_block_stack()):
+        if axis is None or b.axis == axis:
+            return b
+    return None
+
+
+def block_offset(axis: str, n_local: int) -> int:
+    """The global index of this rank's first row of ``axis`` (0 outside a
+    block region of it); ``n_local`` is the block's length."""
+    b = current_block(axis)
+    return 0 if b is None else b.index * n_local
+
+
+def map_tensors(fn, tree):
+    """``fn`` over the tensor leaves of tuples (NamedTuples kept), lists
+    and dicts (a state tree); other leaves as they are."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        kids = [map_tensors(fn, t) for t in tree]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else tuple(kids)
+    if isinstance(tree, list):
+        return [map_tensors(fn, t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def _any_dtensor(tree) -> bool:
+    found = []
+    map_tensors(lambda t: found.append(is_dtensor(t)) or t, tree)
+    return any(found)
+
+
+def _block_of(ctx: ShardingCtx, logical_axis: str) -> Optional[Block]:
+    """The block region ``logical_axis`` would open under ``ctx``: None
+    where it rides no free mesh axis (none in its rule, or every one taken
+    by an enclosing lifted axis or block region)."""
+    names = mesh_axes(ctx.mesh)
+    prefix = list(_vmap_prefix())
+    if prefix and prefix[-1] == logical_axis:
+        prefix = prefix[:-1]  # vmap_logical registers the axis it opens
+    taken = {a for name in prefix for a in _as_tuple(ctx.rules.get(name))}
+    for b in _block_stack():
+        taken.update(b.mesh_axes)
+    want = tuple(a for a in _as_tuple(ctx.rules.get(logical_axis))
+                 if a in names and a not in taken)
+    return _block(ctx.mesh, logical_axis, want) if want else None
+
+
+def _block(mesh, axis: str, on: Tuple[str, ...]) -> Block:
+    """The block of ``axis`` split over mesh axes ``on`` (outer first)
+    that this rank holds."""
+    names = mesh_axes(mesh)
+    coord = mesh.get_coordinate()
+    sizes = mesh_sizes(mesh)
+    index, ways = 0, 1
+    for a in on:
+        index = index * sizes[a] + coord[names.index(a)]
+        ways *= sizes[a]
+    return Block(mesh, axis, tuple(on), spec_placements((tuple(on),), names),
+                 index, ways)
+
+
+def on_blocks(fn, logical_axis: str, in_axes=0):
+    """``fn`` run on this rank's block of ``logical_axis`` (dim 0 of every
+    argument with ``in_axes`` 0), the counterpart of a ``shard_map`` over
+    the mesh axes the ambient rules give that axis.
+
+    Applies only inside a ``use_sharding`` context on a DeviceMesh, with
+    some argument a DTensor and the axis on a free mesh axis; otherwise
+    ``fn(*args)``. A DTensor argument is laid out Shard(0) on the axis'
+    mesh dims and Replicate on the others (a redistribute where it was
+    not) and handed to ``fn`` as its local block; a plain tensor argument
+    (the same on every rank) as its block. Tensor outputs come back as
+    DTensors in that layout, 0-d ones as plain tensors (a value every rank
+    computed alike). Inside, :func:`lift_rows` and :func:`roll_blocks`
+    see the region."""
+    def call(*args):
+        ctx = current_ctx()
+        if ctx is None or not hasattr(ctx.mesh, "get_coordinate") \
+                or not _any_dtensor(args):
+            return fn(*args)
+        blk = _block_of(ctx, logical_axis)
+        if blk is None:
+            return fn(*args)
+        axes = in_axes if isinstance(in_axes, (tuple, list)) \
+            else (in_axes,) * len(args)
+
+        def local(t):
+            if t.dim() == 0:
+                return whole(t)
+            if t.shape[0] % blk.ways:
+                raise ValueError(
+                    f"{logical_axis} of length {t.shape[0]} does not split "
+                    f"into the {blk.ways} blocks of mesh axes "
+                    f"{blk.mesh_axes}")
+            if is_dtensor(t):
+                if tuple(t.placements) != blk.placements:
+                    t = t.redistribute(blk.mesh, blk.placements)
+                return t.to_local()
+            return local_block(t, blk.mesh, blk.placements)
+
+        largs = [map_tensors(local if ax == 0 else whole, a)
+                 for a, ax in zip(args, axes)]
+        st = _block_stack()
+        st.append(blk)
+        try:
+            out = fn(*largs)
+        finally:
+            st.pop()
+        return map_tensors(
+            lambda t: t if t.dim() == 0 else to_blocks(t, blk), out)
+
+    return call
+
+
+def to_blocks(t, blk: Block):
+    """The local block ``t`` as a DTensor laid out as ``blk``."""
+    from torch.distributed.tensor import DTensor
+
+    shape = (t.shape[0] * blk.ways,) + tuple(t.shape[1:])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(t, blk.mesh, blk.placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def _row_blocks() -> Optional[Block]:
+    """The active block regions as one layout of flattened rows: their
+    mesh axes on dim 0, outer region first (rows are slot-major)."""
+    st = _block_stack()
+    if not st:
+        return None
+    axes: list = []
+    for b in st:
+        axes.extend(a for a in b.mesh_axes if a not in axes)
+    return _block(st[-1].mesh, st[-1].axis, tuple(axes))
+
+
+def lift_rows(fn):
+    """Inside a block region, ``fn`` (a row function: every tensor
+    argument's dim 0 is rows, the block's rows flattened with whatever
+    follows them) runs with its rows back on the mesh: each tensor
+    argument a DTensor Shard(0) on the region's mesh axes, so that
+    ``fn``'s parameters may be tensor-parallel over the others; the
+    output comes back as this rank's local rows. ``shard_act`` inside
+    keeps the region's mesh axes on dim 0 and plain constants are taken
+    as replicated (``implicit_replication``). Outside a region,
+    ``fn(*args)``."""
+    def call(*args):
+        blk = _row_blocks()
+        if blk is None:
+            return fn(*args)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        lifted = [to_blocks(a, blk) if hasattr(a, "dim") and a.dim() > 0
+                  else a for a in args]
+        saved = _block_stack()[:]
+        st = getattr(_local, "row_axes", None)
+        _local.row_axes = blk.mesh_axes
+        _block_stack().clear()  # fn runs on the whole mesh again
+        try:
+            with implicit_replication():
+                out = fn(*lifted)
+        finally:
+            _block_stack().extend(saved)
+            _local.row_axes = st
+
+        def back(t):
+            if not is_dtensor(t):
+                return t
+            if tuple(t.placements) != blk.placements:
+                t = t.redistribute(blk.mesh, blk.placements)
+            return t.to_local()
+
+        return map_tensors(back, out)
+
+    return call
+
+
+def place_tree(tree: dict, axes: dict, skip: Sequence[str] = ()) -> dict:
+    """A dict of tensors (the same on every rank) laid out by the ambient
+    context: each leaf a DTensor by its logical ``axes`` (the keys in
+    ``skip``, and every leaf outside a context, as they are). Each rank
+    keeps its block; nothing goes on the wire. A KV cache by
+    ``cache_axes``."""
+    ctx = current_ctx()
+    if ctx is None or not hasattr(ctx.mesh, "get_coordinate"):
+        return tree
+    return {k: v if k in skip or is_dtensor(v) else local_dtensor(
+        v, ctx.mesh, ctx.placements(axes[k], tuple(v.shape)))
+        for k, v in tree.items()}
+
+
+def assign(dst, index, src) -> None:
+    """``dst[index] = src`` in place. On a DTensor ``dst`` each rank writes
+    its own block: ``src`` is laid out as ``dst`` (a redistribute that
+    only cuts blocks where ``src`` was whole) and copied into the local
+    block; ``index`` may cut only dims that are whole on every rank (a
+    cache's sequence). DTensor's own ``index_put`` has no strategy on some
+    releases."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not is_dtensor(dst):
+        dst[index] = src
+        return
+    mesh = dst.device_mesh
+    if not is_dtensor(src):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = src.to(dst.dtype)
+    want = tuple(dst.placements)
+    lead = index if isinstance(index, tuple) else (index,)
+    drop = 0  # leading integer indices (a cache's layer) drop their dims
+    while drop < len(lead) and isinstance(lead[drop], int):
+        drop += 1
+    if drop:
+        if any(isinstance(p, Shard) and p.dim < drop for p in want):
+            raise ValueError("assign: an indexed dim is split")
+        want = tuple(Shard(p.dim - drop) if isinstance(p, Shard) else p
+                     for p in want)
+    if tuple(src.placements) != want:
+        src = src.redistribute(mesh, want)
+    dst.to_local()[index] = src.to_local()
+
+
+def take_rows(x, idx):
+    """``x.index_select(0, idx)`` as a plain tensor on every rank. On a
+    DTensor whose dim 0 is split over one mesh dim, each rank selects its
+    candidates for the rows (clamped into its block), all-gathers them
+    over that dim's group and keeps each row's owner's copy, on the
+    device: ``len(idx)`` rows a rank on the wire, never ``x``."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(x):
+        return x.index_select(0, idx)
+    loc = x.to_local()
+    dims = [md for md, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == 0]
+    if not dims:
+        return loc.index_select(0, idx)
+    if len(dims) > 1:
+        raise NotImplementedError("rows split over more than one mesh dim")
+    mesh, md = x.device_mesh, dims[0]
+    n = loc.shape[0]
+    ways = int(mesh.shape[md])
+    start = int(mesh.get_coordinate()[md]) * n
+    cand = loc.index_select(0, (idx - start).clamp(0, n - 1))
+    if ways == 1:
+        return cand
+    from repro_torch.dist.collectives import all_gather
+
+    got = all_gather(cand, mesh.get_group(md))  # [W, len(idx), ...]
+    owner = torch.div(idx, n, rounding_mode="floor")
+    return got[owner, torch.arange(idx.shape[0], device=idx.device)]
+
+
+def roll_blocks(x, shift: int, dim: int, axis: str):
+    """``torch.roll(x, shift, dims=dim)`` where ``dim`` of ``x`` is the
+    logical ``axis``: inside a block region of that axis the roll crosses
+    ranks, so the ``|shift|`` elements that leave the block go to the
+    neighbouring rank's block over a ring (one boundary slab a rank, never
+    the whole axis); elsewhere the local roll."""
+    import torch
+
+    blk = current_block(axis)
+    out = torch.roll(x, shift, dims=dim)
+    if blk is None or blk.ways == 1:
+        return out
+    from repro_torch.dist.collectives import ring_shift
+
+    if len(blk.mesh_axes) != 1:
+        raise NotImplementedError(
+            f"roll over {axis} on mesh axes {blk.mesh_axes}: one mesh axis "
+            f"only")
+    n = abs(int(shift))
+    if n > x.shape[dim]:
+        raise NotImplementedError("a roll past a whole block")
+    if shift > 0:   # the last n elements go to the next rank's front
+        slab = x.narrow(dim, x.shape[dim] - n, n)
+        got = ring_shift(slab, +1, blk.mesh.get_group(blk.mesh_axes[0]))
+        return torch.cat([got, out.narrow(dim, n, x.shape[dim] - n)], dim)
+    slab = x.narrow(dim, 0, n)  # the first n go to the previous rank's end
+    got = ring_shift(slab, -1, blk.mesh.get_group(blk.mesh_axes[0]))
+    return torch.cat([out.narrow(dim, 0, x.shape[dim] - n), got], dim)
 
 
 def shard_act(x, logical_axes: Sequence[Optional[str]]):
@@ -451,8 +784,15 @@ def shard_act(x, logical_axes: Sequence[Optional[str]]):
     prefix = _vmap_prefix()
     lifted = list(prefix[len(prefix) - (x.dim() - len(logical_axes)):]) \
         if x.dim() > len(logical_axes) else []
+    rows = getattr(_local, "row_axes", None) or ()
+    reserved = tuple(_reserved_axes(ctx)) + tuple(
+        a for a in rows if a not in _reserved_axes(ctx))
     spec = list(ctx.pspec(logical_axes, tuple(x.shape)[len(lifted):],
-                          reserved=_reserved_axes(ctx)))
+                          reserved=reserved))
+    if rows and not lifted and spec:
+        # under lift_rows dim 0 is the lifted axes' rows flattened with
+        # the batch: those mesh axes stay on it, outermost
+        spec[0] = _normalize(tuple(rows) + _as_tuple(spec[0]))
     names = mesh_axes(ctx.mesh)
     taken: list = []
     head = []

@@ -39,11 +39,16 @@ def local_shards(name: str, kernel: Callable, args, whole: Sequence[tuple],
     own GQA group's kv heads); where they differ, a mesh dim on which they
     disagree is replicated on all of them. ``rows``: plain tensors (or
     None) indexed by ``args[0]``'s dim 0, the same on every rank (the
-    positions of a batch), passed on as this rank's rows."""
+    positions of a batch), passed on as this rank's rows. A plain tensor
+    in ``args`` (a constant, the same on every rank) is taken as
+    replicated: each rank gets the whole of it."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.dist.sharding import local_block
 
+    mesh = args[0].device_mesh
+    args = [a if isinstance(a, DTensor) else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args]
     lays = [list(_keep_whole(a, w)) for a, w in zip(args, whole)]
     if same_layout:
         group = [0] + list(same_layout)

@@ -16,6 +16,11 @@ Dh]`` in bf16 whatever the compute dtype, written in place (the
 counterpart of the reference's donated carry), and ``len`` int32 ``[B]``
 kept on the host, so a decode step knows its write position and the
 cache's live prefix without waiting for the device.
+
+On a mesh (DTensor activations under ``use_sharding``) the prefill lays
+the new cache out by :func:`cache_axes` (batch on the data axes, kv heads
+on the model axes under ``SERVE_RULES``; the sequence is whole) and every
+write is each rank's own block (``dist.sharding.assign``).
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard_act
+from repro_torch.dist.sharding import assign, place_tree, shard_act
 from repro_torch.models import layers as L
 from repro_torch.utils.pspec import spec
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
@@ -67,16 +72,17 @@ def attend_or_decode(cfg: ModelConfig, q, k, v, positions, causal, attn_impl,
     written in place at ``cur``, then one query against the cache."""
     if cur is not None:
         k_cache, v_cache = cache
-        k_cache[:, cur:cur + 1] = k.to(k_cache.dtype)
-        v_cache[:, cur:cur + 1] = v.to(v_cache.dtype)
+        at = (slice(None), slice(cur, cur + 1))
+        assign(k_cache, at, k.to(k_cache.dtype))
+        assign(v_cache, at, v.to(v_cache.dtype))
         return L.attend_decode(q, k_cache, v_cache, cur + 1)
     q_pos = positions[0] if cfg.mrope_sections else positions
     attn = L.attend(q, k, v, q_pos, q_pos, causal, impl=attn_impl,
                     use_kernel=use_kernel)
     if cache is not None:
-        s = k.shape[1]
-        cache[0][:, :s] = k.to(cache[0].dtype)
-        cache[1][:, :s] = v.to(cache[1].dtype)
+        at = (slice(None), slice(0, k.shape[1]))
+        assign(cache[0], at, k.to(cache[0].dtype))
+        assign(cache[1], at, v.to(cache[1].dtype))
     return attn
 
 
@@ -166,7 +172,8 @@ def run_prefill(params, cfg: ModelConfig, e, block, max_len):
     to S; the final norm stays plain, as in the reference."""
     b, s = e.shape[:2]
     positions = _positions(cfg, b, s, device=e.device)
-    cache = init_cache(cfg, b, max_len, device=e.device)
+    cache = place_tree(init_cache(cfg, b, max_len, device=e.device),
+                       cache_axes(cfg), skip=("len",))
     h = e
     for i, p in enumerate(_layers(params["blocks"])):
         h = block(p, h, positions, (cache["k"][i], cache["v"][i]))

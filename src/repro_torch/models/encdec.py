@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard_act
+from repro_torch.dist.sharding import assign, place_tree, shard_act
 from repro_torch.models import layers as L
 from repro_torch.models.dense import (CACHE_DTYPE, _layers,
                                       _positions, attend_or_decode,
@@ -172,15 +172,16 @@ def prefill(params, cfg: ModelConfig, tokens, max_len, src_embeds,
     pos = _positions(cfg, b, s, device=tokens.device)
     mem_pos = _positions(cfg, b, memory.shape[1], device=tokens.device)
     h = L.embed(params["embed"], cfg, tokens)
-    cache = init_cache(cfg, b, max_len, src_len=memory.shape[1],
-                       device=h.device)
+    cache = place_tree(init_cache(cfg, b, max_len, src_len=memory.shape[1],
+                                  device=h.device), cache_axes(cfg),
+                       skip=("len",))
     for i, p in enumerate(_layers(params["dec"])):
         ck, cv = _cross_kv(p["cross_attn"], memory, h.dtype)
         h = _dec_block(cfg, p, h, memory, pos, mem_pos, attn_impl,
                        self_cache=(cache["k"][i], cache["v"][i]),
                        cross_kv=(ck, cv))
-        cache["ck"][i] = ck.to(cache["ck"].dtype)
-        cache["cv"][i] = cv.to(cache["cv"].dtype)
+        assign(cache["ck"], i, ck.to(cache["ck"].dtype))
+        assign(cache["cv"], i, cv.to(cache["cv"].dtype))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     cache["len"].fill_(s)
     return L.unembed(params["embed"], cfg, h), cache

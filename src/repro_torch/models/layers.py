@@ -227,6 +227,14 @@ def attend_decode(q, k_cache, v_cache, cur_len,
     Positions past a host length are masked in the reference, so they add
     exact zeros there; reading only the prefix upcasts only it to f32.
     """
+    if is_dtensor(q):  # on a mesh: each rank's rows and heads
+        by_row = () if isinstance(cur_len, int) else (cur_len,)
+        return kmesh.local_shards(
+            "attend_decode",
+            lambda a, b, c, *cl: attend_decode(a, b, c, *(cl or (cur_len,)),
+                                               scale=scale),
+            (q, k_cache, v_cache), whole=((1, 3),) * 3, same_layout=(1, 2),
+            rows=by_row)
     b, _, h, dh = q.shape
     smax, kvh = k_cache.shape[1], k_cache.shape[2]
     live = cur_len if isinstance(cur_len, int) else smax

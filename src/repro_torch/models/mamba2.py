@@ -16,6 +16,15 @@ With ``cfg.use_kernels`` and CUDA tensors it takes the kernel arrangement
 with the ``ssd_chunk`` CUDA kernel; otherwise the plain body, so the flag
 is bitwise-neutral on the CPU as ``resolve_kernel_mode`` makes it in the
 reference. Three-operand einsums of the reference are contracted pairwise.
+
+On a mesh (DTensor activations under ``use_sharding``) a layer runs on each
+rank's rows with its parameters whole (:func:`_on_rows`): the in-projection
+packs z, x, B, C and dt along one ``ffn`` dim, whose split over the model
+axes does not follow the heads, so the port does not split the layer's
+products. The kernel arrangement's ``ssd_chunk`` runs on those rows and
+this rank's block of heads over the model axes (``kernels/ssd_scan/ops.py``
+on DTensors), its outputs gathered back over them. The states come back
+laid out as the rows; a cache writes its own block of them.
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard_act
+from repro_torch.dist.sharding import (current_ctx, is_dtensor, local_block,
+                                       shard_act, whole)
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.utils.pspec import spec
@@ -162,6 +172,64 @@ def ssd_scan_chunked(chunk_fn: Callable, xh, bh, ch, dth, logc, init,
     return carry, torch.stack(ys, dim=1)
 
 
+def _rows_layout(x):
+    """``x``'s placements with only its dim-0 (rows) splits kept."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+
+
+def _on_rows(fn, p, x, *states):
+    """``fn(p, x, *states, chunk_fn)`` on this rank's rows of DTensor
+    ``x`` with the layer's parameters whole; the chunk function (None for
+    the plain scan) gets this rank's heads block on the model axes. The
+    outputs come back as DTensors laid out as the rows."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = x.device_mesh
+    rows = _rows_layout(x)
+
+    def mine(t):
+        if t is None or not is_dtensor(t):
+            return t
+        if tuple(t.placements) != rows:
+            t = t.redistribute(mesh, rows)
+        return t.to_local()
+
+    pw = {k: whole(v) for k, v in p.items()}
+
+    def y_rows(t):
+        return DTensor.from_local(t, mesh, rows, run_check=False)
+
+    def heads_chunk(c_mat, b_mat, xdt, cum, local_fn):
+        """``local_fn`` (a chunk function) on this rank's rows and its
+        heads block."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        ctx = current_ctx()
+        heads = ctx.placements((None, "heads"), tuple(xdt.shape[:2])) \
+            if ctx is not None else rows
+        cut = tuple(h if isinstance(h, Shard) else Replicate()
+                    for h in heads)
+        lay = tuple(h if isinstance(h, Shard) else r
+                    for r, h in zip(rows, heads))
+
+        def on_mesh(t, placements, narrow=False):
+            loc = local_block(t, mesh, cut) if narrow else t
+            return DTensor.from_local(loc, mesh, placements, run_check=False)
+
+        y, st = ssd_ops.on_shards(
+            local_fn, on_mesh(c_mat, rows), on_mesh(b_mat, rows),
+            on_mesh(xdt, lay, True), on_mesh(cum, lay, True))
+        return (y.redistribute(mesh, rows).to_local(),
+                st.redistribute(mesh, rows).to_local())
+
+    y, (conv, ssm) = fn(pw, mine(x), *(mine(t) for t in states),
+                        heads_chunk)
+    return y_rows(y), (y_rows(conv), y_rows(ssm))
+
+
 def ssd_forward(p, cfg: ModelConfig, x, conv_state=None, ssm_state=None,
                 chunk_fn: Optional[Callable] = None):
     """Chunked SSD. x: [B, S, D] -> (y [B, S, D], (conv_state, ssm_state)).
@@ -169,6 +237,20 @@ def ssd_forward(p, cfg: ModelConfig, x, conv_state=None, ssm_state=None,
     ``chunk_fn`` forces the kernel arrangement with that chunk function
     (the CPU tests pass the plain ``ssd_chunk_batched_ref``); by default
     ``cfg.use_kernels`` on CUDA tensors picks it with the CUDA kernel."""
+    if is_dtensor(x):
+        local_fn = chunk_fn
+        if chunk_fn is None and cfg.use_kernels and on_cuda(x):
+            local_fn = ssd_ops.ssd_chunk
+
+        def run(pw, xl, cs, ss, heads_chunk):
+            fn = None
+            if local_fn is not None:
+                def fn(c, b, xd, cm):
+                    return heads_chunk(c, b, xd, cm, local_fn)
+            return ssd_forward(pw, cfg, xl, cs, ss, chunk_fn=fn)
+
+        y, states = _on_rows(run, p, x, conv_state, ssm_state)
+        return y, states
     bsz, s, _ = x.shape
     din, n, h, hd = (d_inner(cfg), cfg.ssm_state, num_ssm_heads(cfg),
                      cfg.ssm_head_dim)
@@ -221,7 +303,13 @@ def ssd_decode_step(p, cfg: ModelConfig, x, conv_state, ssm_state):
     """x: [B, 1, D]; O(1) recurrent update, plain as in the reference.
     Returns (y, (conv_state, ssm_state)). The conv state comes back in the
     promoted dtype of (state, x), as ``jnp.concatenate`` gives it: f32
-    from a bf16 state and f32 activations."""
+    from a bf16 state and f32 activations. On a mesh each rank's rows,
+    the parameters and the states whole (:func:`_on_rows`)."""
+    if is_dtensor(x):
+        y, states = _on_rows(
+            lambda pw, xl, cs, ss, _: ssd_decode_step(pw, cfg, xl, cs, ss),
+            p, x, conv_state, ssm_state)
+        return y, states
     bsz = x.shape[0]
     din, n, h, hd = (d_inner(cfg), cfg.ssm_state, num_ssm_heads(cfg),
                      cfg.ssm_head_dim)

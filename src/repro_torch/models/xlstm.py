@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard_act
+from repro_torch.dist.sharding import assign, place_tree, shard_act
 from repro_torch.models import layers as L
 from repro_torch.models.dense import _layers
 from repro_torch.models.mamba2 import _depthwise_causal_conv
@@ -389,14 +389,14 @@ def _run(params, cfg, e, cache, step: bool, remat: bool = False):
                 st["m_conv"][gi, j], step=step)
             for key, val in (("m_c", c_), ("m_n", n_), ("m_m", m_),
                              ("m_conv", cv_)):
-                st[key][gi, j] = val.to(F32)
+                assign(st[key], (gi, j), val.to(F32))
         h, ((sc, sn, sm, sh), scv) = _slstm_block(
             slstm[gi], cfg, h,
             (st["s_c"][gi], st["s_n"][gi], st["s_m"][gi], st["s_h"][gi]),
             st["s_conv"][gi])
         for key, val in (("s_c", sc), ("s_n", sn), ("s_m", sm), ("s_h", sh),
                          ("s_conv", scv)):
-            st[key][gi] = val.to(F32)
+            assign(st[key], gi, val.to(F32))
     st["len"] += e.shape[1]
     return h, st
 
@@ -422,8 +422,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len=None, attn_impl=None):
     """tokens: [B, S] -> (logits [B, S, V], state after S). The zero state
     goes in as a cache, so the conv states run from zeros."""
     e = L.embed(params["embed"], cfg, tokens)
-    h, cache = _run(params, cfg, e, _zero_states(cfg, tokens.shape[0],
-                                                 e.device), step=False)
+    zero = place_tree(_zero_states(cfg, tokens.shape[0], e.device),
+                      cache_axes(cfg), skip=("len",))
+    h, cache = _run(params, cfg, e, zero, step=False)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], cfg, h), cache
 

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard_act
+from repro_torch.dist.sharding import assign, place_tree, shard_act
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.dense import (CACHE_DTYPE, _layers,
@@ -110,8 +110,8 @@ def forward_hidden(params, cfg: ModelConfig, embeds, positions=None,
             x = L.rmsnorm(h, p["ln"], cfg.norm_eps, use_kernel=uk)
             y, (conv, ssm) = M.ssd_forward(p["ssd"], cfg, x)
             if cache is not None:
-                cache["conv"][i] = conv.to(cache["conv"].dtype)
-                cache["ssm"][i] = ssm
+                assign(cache["conv"], i, conv.to(cache["conv"].dtype))
+                assign(cache["ssm"], i, ssm)
             h = h + y
         kv = None if cache is None else (cache["k"][gi], cache["v"][gi])
         return _shared_block(cfg, params["shared"], h, h0, positions,
@@ -166,7 +166,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len, attn_impl="auto"):
     ``forward_hidden``."""
     b, s = tokens.shape
     e = L.embed(params["embed"], cfg, tokens)
-    cache = init_cache(cfg, b, max_len, device=e.device)
+    cache = place_tree(init_cache(cfg, b, max_len, device=e.device),
+                       cache_axes(cfg), skip=("len",))
     h = forward_hidden(params, cfg, e, attn_impl=attn_impl, cache=cache)
     cache["len"].fill_(s)
     return L.unembed(params["embed"], cfg, h), cache
@@ -178,7 +179,7 @@ def _store(cache, key, i, value):
     to it, as the reference's stacked step outputs carry it."""
     if cache[key].dtype != value.dtype:
         cache[key] = cache[key].to(value.dtype)
-    cache[key][i] = value
+    assign(cache[key], i, value)
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, attn_impl="auto"):

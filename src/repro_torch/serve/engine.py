@@ -46,8 +46,9 @@ from repro_torch.core.chords import default_lane_profile
 from repro_torch.core.init_sequence import make_sequence
 from repro_torch.device import resolve_device
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
-from repro_torch.serve.executor import (GridSpec, RoundExecutor,
-                                        StreamSpec)
+from repro_torch.dist.sharding import is_dtensor, whole
+from repro_torch.serve.executor import (GridSpec, RoundExecutor, StreamSpec,
+                                        ambient_sharding_tag, read_rows)
 from repro_torch.serve.sched.cost import CostModel
 from repro_torch.serve.sched.policy import (Decision, EngineView, LaneView,
                                             ResizeProposal, get_policy)
@@ -155,7 +156,7 @@ class StreamingSampler:
                                           executor, use_kernel)
         self._run = self.executor.stream(StreamSpec(
             num_cores=num_cores, i_seq=tuple(self.i_seq), rtol=rtol,
-            batched=batched))
+            batched=batched, sharding=ambient_sharding_tag()))
         self._readbacks = 0
 
     @property
@@ -386,6 +387,10 @@ class ContinuousEngine:
             self.max_slots = int(max_slots if max_slots is not None
                                  else max(num_slots, self.min_slots))
         self._ladder = bucket_ladder(self.min_slots, self.max_slots)
+        # the ambient mesh context is part of the cache key: a program
+        # built under use_sharding is never served to a bare engine (every
+        # bucket's grid is built now, under the context of construction)
+        self._sharding = ambient_sharding_tag()
         # every bucket's grid is built now, once, and pinned: a graph grid
         # captures in 0.2-0.8 s, so a resize must never rebuild one, and no
         # eviction may take a grid with live lanes or a migration source
@@ -451,7 +456,8 @@ class ContinuousEngine:
     def _spec(self, s: int) -> GridSpec:
         return GridSpec(num_slots=s, num_cores=self.k,
                         latent_shape=self.latent_shape,
-                        lane_profile=self.lane_profile)
+                        lane_profile=self.lane_profile,
+                        sharding=self._sharding)
 
     def _install_grid(self, s: int):
         """Make bucket ``s`` the current grid, at its initial state
@@ -937,7 +943,7 @@ class ContinuousEngine:
         rows = [st.done.to(torch.int32), st.rounds_used, st.chosen]
         if self.lane_profile is not None:
             rows.append(st.lanes.skips.sum(dim=1, dtype=torch.int32))
-        return torch.stack(rows)
+        return torch.stack([whole(r) for r in rows])
 
     def _step_sync(self, max_rounds_on_device: int = 1
                    ) -> list[tuple[int, SampleOut]]:
@@ -980,9 +986,9 @@ class ContinuousEngine:
         drain = [slot for slot in range(self.s)
                  if self._slot_item[slot] is not None and done[slot]]
         if drain:
-            # one gather + one transfer for the whole drain set
-            idx = torch.as_tensor(drain, device=self.device)
-            results = self.state.result[idx].cpu()
+            # one gather + one transfer for the whole drain set (on a
+            # mesh only the drained slots' results cross ranks)
+            results = read_rows(self.state.result, drain).cpu()
         for j, slot in enumerate(drain):
             item = self._slot_item[slot]
             out.append(self._finish_lane(
@@ -1031,12 +1037,13 @@ class ContinuousEngine:
         can install another grid."""
         flags = self._flags(st)
         if self.device.type != "cuda":
-            return flags.numpy(), st.result[torch.as_tensor(due)]
+            return flags.numpy(), read_rows(st.result, due)
         rb_flags, rb_result = self._rb[self.s]
         idx = _to_device(torch.tensor(due, dtype=torch.int64), self.device)
         rb_flags.copy_(flags, non_blocking=True)
-        rb_result[:len(due)].copy_(st.result.index_select(0, idx),
-                                   non_blocking=True)
+        rb_result[:len(due)].copy_(
+            read_rows(st.result, due) if is_dtensor(st.result)
+            else st.result.index_select(0, idx), non_blocking=True)
         event = torch.cuda.Event()
         event.record()
         return event, rb_flags, rb_result[:len(due)]

@@ -36,12 +36,28 @@ A ``lane_profile`` in the spec builds the heterogeneous round
 per-slot gates (``draft_on``, ``skip_tau``); the profile is part of the
 key, so homogeneous and heterogeneous grids of one shape never alias.
 
-Not ported yet: the batch streaming program's device loop (ROADMAP.md
-queue 1 item 8b).
+The batch streaming program runs as one device loop too: on the card
+``GraphStream``, a WHILE graph whose condition kernel reads ``pending``.
+
+**On a mesh.** Built inside ``use_sharding(mesh, rules)`` (the context is
+taken at build time, as ``jax.jit`` takes it at trace time, and its
+:func:`ambient_sharding_tag` is part of both specs, so a program built
+under a mesh is never served to a bare engine), a grid's state is
+DTensors, every leaf led by the slots and laid out by
+``ctx.placements(("slots", ...))``; ``round``, ``admit`` and the loops'
+rounds run on each rank's block of slots (``vmap_logical`` over
+``slots``), and ``multi``'s exit is reduced over the slots' mesh axes by
+the device loop's condition (any slot on any rank that accepts stops every
+rank). S must be a multiple of the slots' mesh ways. The stream program
+lays its cores out the same way (``core.chords.make_round_body``); its
+emitting core's latent reaches every rank (``dist.sharding.take_rows``).
+On the card a mesh of one rank keeps the graph programs; a wider mesh
+needs ``eager=True``, asked for explicitly.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -55,10 +71,69 @@ from repro_torch.core.chords import (ChordsCarry, LaneSpec,
                                      lane_init_state, make_round_body,
                                      make_slot_round_body, reset_lanes,
                                      reset_slots, slot_init_carry)
+from repro_torch.dist.sharding import (current_ctx, is_dtensor,
+                                       local_dtensor, map_tensors, mesh_sizes,
+                                       take_rows, use_sharding, vmap_logical,
+                                       whole)
 from repro_torch.kernels.device_loop.ops import loop_step
 from repro_torch.kernels.device_loop.ref import EXIT_ON_ACCEPT, FIRST
 from repro_torch.obs import NULL_TRACER, MetricsRegistry
 from repro_torch.utils.convert import torch_dtype
+
+
+def ambient_sharding_tag() -> Optional[str]:
+    """Stable tag for the active ``use_sharding`` context (``None`` outside
+    one), the reference's string for the same mesh shape and rules.
+    Engines put it in their spec keys so programs built under different
+    mesh contexts never alias a cache entry."""
+    ctx = current_ctx()
+    if ctx is None:
+        return None
+    axes = mesh_sizes(ctx.mesh)
+    return f"mesh={sorted(axes.items())};rules={sorted(ctx.rules.items())}"
+
+
+@contextlib.contextmanager
+def _under(ctx):
+    """The context a program was built under, again for its call."""
+    if ctx is None:
+        yield
+        return
+    with use_sharding(ctx.mesh, ctx.rules):
+        yield
+
+
+def _mesh_ways(ctx, axis: str) -> int:
+    """How many ways ``axis`` splits under ``ctx`` (1 off a mesh)."""
+    if ctx is None:
+        return 1
+    sizes = mesh_sizes(ctx.mesh)
+    rule = ctx.rules.get(axis)
+    names = (rule,) if isinstance(rule, str) else tuple(rule or ())
+    return int(np.prod([sizes[a] for a in names if a in sizes] or [1]))
+
+
+def place(tree, ctx, axis: str):
+    """Every tensor of ``tree`` (the same on every rank) as a DTensor led
+    by logical ``axis`` (the rest replicated) under ``ctx``; each rank
+    keeps its block, nothing goes on the wire. ``tree`` as it is off a
+    mesh."""
+    if ctx is None:
+        return tree
+
+    def one(t):
+        return local_dtensor(t, ctx.mesh, ctx.placements(
+            (axis,) + (None,) * (t.dim() - 1), tuple(t.shape)))
+
+    return map_tensors(one, tree)
+
+
+def read_rows(t, rows):
+    """``t[rows]`` on every rank, ``rows`` a list of slots: of a
+    slot-sharded DTensor only those rows cross ranks (the finished slots'
+    results, never the grid)."""
+    return take_rows(t, torch.as_tensor(rows, dtype=torch.int64,
+                                        device=t.device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +145,8 @@ class GridSpec:
     it is called with. ``None`` (the default, and what the engines pass)
     leaves the budget to the call, so varying R never rebuilds.
     ``lane_profile`` (a tuple of ``core.chords.LaneSpec`` or ``None``)
-    selects the heterogeneous round."""
+    selects the heterogeneous round. ``sharding`` is the
+    :func:`ambient_sharding_tag` the grid is built under."""
 
     num_slots: int
     num_cores: int
@@ -78,6 +154,7 @@ class GridSpec:
     dtype: str = "float32"
     device_rounds: Optional[int] = None
     lane_profile: Optional[Tuple[LaneSpec, ...]] = None
+    sharding: Optional[str] = None
 
     def __post_init__(self):
         object.__setattr__(self, "latent_shape", tuple(self.latent_shape))
@@ -90,12 +167,14 @@ class GridSpec:
 
 @dataclasses.dataclass(frozen=True)
 class StreamSpec:
-    """Cache key for the batch streaming-accept program."""
+    """Cache key for the batch streaming-accept program (``sharding``:
+    the :func:`ambient_sharding_tag` it is built under)."""
 
     num_cores: int
     i_seq: Tuple[int, ...]
     rtol: float
     batched: bool = False
+    sharding: Optional[str] = None
 
     def __post_init__(self):
         object.__setattr__(self, "i_seq", tuple(int(i) for i in self.i_seq))
@@ -157,6 +236,11 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
     s, k = spec.num_slots, spec.num_cores
     dev = tgrid.device
     dtype = torch_dtype(spec.dtype)
+    ctx = current_ctx()
+    ways = _mesh_ways(ctx, "slots")
+    if s % ways:
+        raise ValueError(f"grid {spec}: S={s} is not a multiple of the "
+                         f"{ways} ways the mesh splits the slots into")
     # use_kernel engages the FUSED round: solver step + rectification +
     # accept reduction in one kernel pass, err/out sums as [S, K] scalars
     fuse_accept = bool(use_kernel)
@@ -165,10 +249,12 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
                                       use_kernel=use_kernel,
                                       fuse_accept=fuse_accept,
                                       lane_profile=spec.lane_profile)
-    rows = torch.arange(s, device=dev)
+    rows_all = torch.arange(s, device=dev)
 
-    def round_fn(st: SlotState) -> SlotState:
-        """One lockstep round for every live slot + per-slot accept test."""
+    def round_local(st: SlotState) -> SlotState:
+        """One lockstep round for every live slot + per-slot accept test
+        (this rank's slots on a mesh)."""
+        rows = rows_all[:st.live.shape[0]]
         active = st.live
         lanes = st.lanes
         if hetero and fuse_accept:
@@ -215,13 +301,14 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
             lanes=lanes,
         )
 
-    def admit_fn(st: SlotState, mask, x0, i_arr, rtol, draft_on=None,
-                 skip_tau=None) -> SlotState:
-        """Masked admission: reset lanes + per-slot accept state in place.
-        ``x0`` [S, ...] holds the admitted requests' noise (rows read only
-        where ``mask``); the engine draws it on the device. A lane grid
-        also takes the admitted requests' gates (``draft_on`` [S] bool,
-        ``skip_tau`` [S] f32; 0 = exact)."""
+    lifted_round = vmap_logical(round_local, "slots")
+
+    def round_fn(st: SlotState) -> SlotState:
+        with _under(ctx):
+            return lifted_round(st)
+
+    def admit_local(st: SlotState, mask, x0, i_arr, rtol, draft_on=None,
+                    skip_tau=None) -> SlotState:
         if hetero != (draft_on is not None and skip_tau is not None):
             raise ValueError(f"admit on {spec}: the lane gates draft_on and "
                              f"skip_tau go with a lane profile, and only "
@@ -246,13 +333,28 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
                    if hetero else ()),
         )
 
+    lifted_admit = vmap_logical(admit_local, "slots")
+
+    def admit_fn(st: SlotState, mask, x0, i_arr, rtol, draft_on=None,
+                 skip_tau=None) -> SlotState:
+        """Masked admission: reset lanes + per-slot accept state. ``x0``
+        [S, ...] holds the admitted requests' noise (rows read only where
+        ``mask``); the engine draws it on the device. A lane grid also
+        takes the admitted requests' gates (``draft_on`` [S] bool,
+        ``skip_tau`` [S] f32; 0 = exact). On a mesh the arguments are
+        the whole [S, ...] arrays, the same on every rank; each rank
+        admits into its own slots."""
+        with _under(ctx):
+            return lifted_admit(st, mask, x0, i_arr, rtol, draft_on,
+                                skip_tau)
+
     def init_state() -> SlotState:
         lat = torch.zeros((s,) + spec.latent_shape, dtype=dtype, device=dev)
 
         def zs(dt):
             return torch.zeros((s,), dtype=dt, device=dev)
 
-        return SlotState(
+        return place(SlotState(
             carry=slot_init_carry(s, k, spec.latent_shape, dtype, dev),
             i_arr=torch.zeros((s, k), dtype=torch.int32, device=dev),
             rtol=zs(torch.float32),
@@ -262,7 +364,7 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
             last_out=lat, result=lat.clone(),
             rounds_used=zs(torch.int32), chosen=zs(torch.int32),
             lanes=lane_init_state(s, k, dev) if hetero else (),
-        )
+        ), ctx, "slots")
 
     def _loop(st: SlotState, budget: int, flags: int):
         """Up to ``budget`` rounds, the device loop's condition evaluated on
@@ -301,8 +403,24 @@ def _same(st):
     return st
 
 
+def _graphs_on_mesh(eager: bool) -> None:
+    """Graph programs under a mesh context hold only on a mesh of one
+    rank: a wider mesh's rounds run collectives and its loop exit is
+    reduced across ranks on the host, so the caller asks for the eager
+    programs (``eager=True``); nothing falls back on its own."""
+    ctx = current_ctx()
+    if eager or ctx is None:
+        return
+    if int(np.prod(list(mesh_sizes(ctx.mesh).values()))) > 1:
+        raise ValueError(
+            f"CUDA graph programs serve a mesh of one rank; this mesh is "
+            f"{mesh_sizes(ctx.mesh)}: build the RoundExecutor with "
+            f"eager=True")
+
+
 def _build_grid(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool,
                 eager: bool) -> GridPrograms:
+    _graphs_on_mesh(eager)
     fns = _grid_fns(drift, tgrid, n, spec, use_kernel)
     if not eager:
         from repro_torch.serve.graphs import GraphGrid
@@ -312,6 +430,33 @@ def _build_grid(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool,
                         init_state=fns["init_state"], keep=_same,
                         restore=_same, put=_same,
                         reset=fns["init_state"], close=lambda: None)
+
+
+def _migrate_on_mesh(dst, src, mask, src_idx):
+    """``gather_slots`` between two slot-sharded grids: only the migrated
+    lanes cross ranks (:func:`read_rows` of each source lane, every rank
+    receiving them), then each rank writes its own destination slots. The
+    host reads the mask and the source lanes first (a migration is rare)."""
+    m = whole(mask).cpu().numpy()
+    idx = whole(src_idx).cpu().numpy()
+    slots = [j for j in range(len(m)) if m[j]]
+    lanes = [int(idx[j]) for j in slots]
+    pos = torch.as_tensor(slots, dtype=torch.int64, device=mask.device)
+
+    def sel(d, s_):
+        if isinstance(d, tuple):
+            return type(d)(*(sel(a, b) for a, b in zip(d, s_)))
+        full = torch.zeros(d.shape, dtype=d.dtype, device=mask.device)
+        if slots:
+            full[pos] = read_rows(s_, lanes).to(mask.device)
+        return full
+
+    def pick(d, s_, mk):
+        if isinstance(d, tuple):
+            return type(d)(*(pick(a, b, mk) for a, b in zip(d, s_)))
+        return torch.where(bmask(mk, d), s_, d)
+
+    return vmap_logical(pick, "slots")(dst, sel(dst, src), mask)
 
 
 class StreamState(NamedTuple):
@@ -352,6 +497,11 @@ def _stream_fns(drift, tgrid, n: int, spec: StreamSpec,
     every decision are device tensors: a round takes no host decision."""
     dev = tgrid.device
     k = spec.num_cores
+    ctx = current_ctx()
+    ways = _mesh_ways(ctx, "cores")
+    if k % ways:
+        raise ValueError(f"stream {spec}: K={k} is not a multiple of the "
+                         f"{ways} ways the mesh splits the cores into")
     i_arr = torch.as_tensor(spec.i_seq, dtype=torch.int32, device=dev)
     emit_core = torch.as_tensor(emit_core_table(spec.i_seq, n), device=dev)
     round_body = make_round_body(drift, tgrid, i_arr, n, k,
@@ -361,7 +511,7 @@ def _stream_fns(drift, tgrid, n: int, spec: StreamSpec,
     def init(x0, live) -> StreamState:
         accepted = ~live
         return StreamState(
-            carry=chords_init_carry(x0, i_arr, k),
+            carry=place(chords_init_carry(x0, i_arr, k), ctx, "cores"),
             r=torch.ones((), dtype=torch.int32, device=dev),
             accepted=accepted, last_out=torch.zeros_like(x0),
             has_last=torch.zeros((), dtype=torch.bool, device=dev),
@@ -374,7 +524,8 @@ def _stream_fns(drift, tgrid, n: int, spec: StreamSpec,
         core = emit_core.index_select(0, st.r.reshape(1).long())  # [1]
         any_emit = core[0] >= 0
         emitted_k = core.clamp(min=0)
-        out = carry.x.index_select(0, emitted_k.long())[0]
+        # on a mesh the emitting core's latent comes from its rank to all
+        out = take_rows(carry.x, emitted_k.long())[0]
         ok = any_emit & st.has_last & accept_test(out, st.last_out, rtol,
                                                   bdim) & ~st.accepted
         result = torch.where(bmask(ok, out), out, st.result)
@@ -396,7 +547,16 @@ def _stream_fns(drift, tgrid, n: int, spec: StreamSpec,
                              torch.full_like(st.rounds, n), st.rounds)
         return result, torch.stack([rounds, st.chosen])
 
-    return {"init": init, "body": body, "finish": finish}
+    def under(fn):
+        def call(*args):
+            with _under(ctx):
+                return fn(*args)
+        return call
+
+    if ctx is None:
+        return {"init": init, "body": body, "finish": finish}
+    return {"init": under(init), "body": under(body),
+            "finish": under(finish)}
 
 
 class EagerStream:
@@ -437,6 +597,7 @@ def _build_stream(drift, tgrid, n: int, spec: StreamSpec, use_kernel: bool,
     """The stream program for ``spec``: eager, or on CUDA one graph for the
     batch shape of ``x0`` (``serve/graphs.py::GraphStream``), built at its
     first call."""
+    _graphs_on_mesh(eager)
     fns = _stream_fns(drift, tgrid, n, spec, use_kernel)
     if eager:
         return EagerStream(fns, n, tgrid.device)
@@ -479,6 +640,7 @@ class RoundExecutor:
             collections.OrderedDict()
         self._pinned: set = set()      # specs no eviction may take
         self._migrations: set = set()  # (src S, dst S, profile) pairs
+        self._ctx: dict = {}  # spec -> the sharding context it was built in
         self._c_retraces = self.metrics.counter("executor.retraces")
         self._c_stream_traces = self.metrics.counter(
             "executor.stream_traces")
@@ -528,6 +690,7 @@ class RoundExecutor:
             lambda: _build_grid(self.drift, self.tgrid, self.n, spec,
                                 self.use_kernel, self.eager))
         if missed:
+            self._ctx[spec] = current_ctx()
             self._c_retraces.inc()
             self.tracer.instant("retrace", kind="grid",
                                 spec=f"S={spec.num_slots},"
@@ -567,7 +730,12 @@ class RoundExecutor:
         self._migrations.add((src_spec.num_slots, dst_spec.num_slots,
                               src_spec.lane_profile))
 
+        ctx = self._ctx.get(dst_spec)
+
         def run(dst, src, mask, src_idx):
+            if is_dtensor(dst.live):
+                with _under(ctx):
+                    return put(_migrate_on_mesh(dst, src, mask, src_idx))
             return put(gather_slots(dst, src, mask, src_idx))
 
         return run

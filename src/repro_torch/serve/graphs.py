@@ -47,6 +47,11 @@ the condition on ``pending = ~accepted`` with budget N), then the captured
 fall-through and outputs. A call is two input copies, one graph launch and
 the caller's one readback, however many rounds it ran.
 
+Under a mesh context (``use_sharding``) the same programs are captured over
+a mesh of one rank, their state DTensors whose local blocks are the static
+buffers: DTensor runs no collective there (``executor._graphs_on_mesh``
+refuses graphs on a wider mesh).
+
 A replay launches the captured kernels without calling their wrappers; the
 kernels count their own launches on the device (``kernels.launch_counts``),
 so the counts cover replays with nothing added on the host.
@@ -60,6 +65,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels.device_loop import kernel as loop_kernel
 from repro_torch.serve.executor import (GridPrograms, GridSpec, SlotState,
                                         StreamState, state_tensors)
@@ -82,6 +88,11 @@ def no_gc():
     finally:
         if was_enabled:
             gc.enable()
+
+
+def _local(t):
+    """A DTensor's local block (a plain tensor as it is)."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def copy_state(dst: SlotState, src: SlotState) -> SlotState:
@@ -118,9 +129,10 @@ class GraphGrid:
             with no_gc(), torch.cuda.graph(self.graph):
                 copy_state(self.state, fns["round"](self.state))
             self.graph.instantiate()
+            # on a mesh of one rank the flags' local blocks are the flags
             self._loop = loop_kernel.graph_create(
-                self.graph.raw_cuda_graph(), self.state.live,
-                self.state.done, self.done0, self.ctrl)
+                self.graph.raw_cuda_graph(), _local(self.state.live),
+                _local(self.state.done), self.done0, self.ctrl)
             torch.cuda.synchronize(self.device)
         self.build_s = time.perf_counter() - t0
 

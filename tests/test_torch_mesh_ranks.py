@@ -1,7 +1,8 @@
 """The port's side of the mesh tests: programs that run on W gloo ranks of
 the CPU, each rank a process of its own, and write what they computed for
-the tests in ``test_torch_mesh_steps.py`` and ``test_torch_mesh_launch.py``
-to compare with the JAX package. Imports no JAX.
+the tests in ``test_torch_mesh_steps.py``, ``test_torch_mesh_launch.py``,
+``test_torch_serve_mesh.py`` and ``test_torch_lm_serve_mesh.py`` to
+compare with the JAX package. Imports no JAX.
 
     PYTHONPATH=src:tests python -m test_torch_mesh_ranks <job> <io_dir>
 
@@ -412,8 +413,408 @@ def job_elastic(rank: int, world: int, io_dir: str):
     return {"rank": rank, "hist": hist, "log": log, "left": p is None}
 
 
+# --- job "serve": W=4, CHORDS serving on (2, 2) under SERVE_RULES -----------
+
+SERVE_N, SERVE_K, SERVE_S, SERVE_LATENT = 12, 4, 2, 8
+# the trace of test_torch_serve.py: (priority, rtol, deadline_rounds) per
+# request, and one late request (rid, priority, rtol, deadline_rounds)
+SERVE_REQS = [(0, None, None), (1, 0.5, 20), (0, 0.0, None), (2, None, 14),
+              (0, 0.3, 30)]
+SERVE_LATE = (9, 0, None, 10)
+# (policy, rounds a device program) of the engine runs
+SERVE_RUNS = (("fifo", 1), ("edf-preempt", 1), ("edf", 8))
+SLOT_ROUNDS = 6  # rounds of the bare slot round body
+
+
+def _dit(inp):
+    from repro_torch.configs import get_config
+    from repro_torch.diffusion import init_wrapper
+    from repro_torch.utils.convert import load_jax_params
+
+    cfg = get_config("chords-dit-xl", reduced=True)
+    return cfg, load_jax_params(
+        init_wrapper(cfg, SERVE_LATENT, device="cpu"), inp["dit"])
+
+
+def _drive(eng, inp, r_dev=1, **req_kw):
+    """The trace through ``eng``: {rid: (sample, rounds_used,
+    accepted_core, latency_rounds)} and its stats()."""
+    from repro_torch.serve import Request
+
+    def req(i, prio, rtol, dl):
+        return Request(rid=i, x0=inp["noise"][i], priority=prio, rtol=rtol,
+                       deadline_rounds=dl, **req_kw)
+
+    for i, (prio, rtol, dl) in enumerate(SERVE_REQS):
+        eng.submit(req(i, prio, rtol, dl))
+    done = []
+    for _ in range(3):
+        done += eng.step(max_rounds_on_device=r_dev)
+    eng.submit(req(*SERVE_LATE))
+    done += eng.run_until_drained(max_rounds_on_device=r_dev)
+    return ({rid: (o.sample.numpy().copy(), o.rounds_used, o.accepted_core,
+                   o.latency_rounds) for rid, o in done}, eng.stats())
+
+
+def _state_layout(st):
+    """Type names of every leaf of a SlotState, and its latent's global
+    and local shapes."""
+    from repro_torch.serve.executor import state_tensors
+
+    x = st.carry.x
+    return {"kinds": sorted({type(t).__name__ for t in state_tensors(st)}),
+            "global": tuple(x.shape), "local": tuple(x.to_local().shape),
+            "placements": [repr(p) for p in x.placements]}
+
+
+def _serve_engines(inp, mesh, params, dparams, cfg):
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import SERVE_RULES, use_sharding
+    from repro_torch.serve import ContinuousEngine
+
+    tg = uniform_tgrid(SERVE_N)
+    shape = (1, 16, SERVE_LATENT)
+    out = {}
+
+    def engine(drift, **kw):
+        return ContinuousEngine(drift, shape, SERVE_N, SERVE_K, tg,
+                                use_kernel=True, device="cpu", **kw)
+
+    for policy, r_dev in SERVE_RUNS:
+        one = _drive(engine(make_drift(params, cfg), num_slots=SERVE_S,
+                            policy=policy), inp, r_dev)
+        with use_sharding(mesh, SERVE_RULES):
+            eng = engine(make_drift(dparams, cfg), num_slots=SERVE_S,
+                         policy=policy)
+        coll.reset_wire_bytes()
+        with coll.CollectiveLog(mesh) as log:
+            got = _drive(eng, inp, r_dev)
+        out[(policy, r_dev)] = {"one": one, "mesh": got,
+                                "log": dict(log.counts),
+                                "wire": coll.wire_bytes(),
+                                "layout": _state_layout(eng.state)}
+    # lanes (adaptive requests), an elastic grid and the overlap loop (2
+    # rounds a device program): against one device
+    for name, kw, req_kw, r_dev in (
+            ("lanes", {"num_slots": SERVE_S, "lane_profile": True},
+             {"mode": "adaptive"}, 1),
+            ("elastic", {"min_slots": 2, "max_slots": 4}, {}, 1),
+            ("overlap", {"num_slots": SERVE_S, "overlap": True}, {}, 2)):
+        one = _drive(engine(make_drift(params, cfg), **kw), inp, r_dev,
+                     **req_kw)
+        with use_sharding(mesh, SERVE_RULES):
+            eng = engine(make_drift(dparams, cfg), **kw)
+        out[name] = {"one": one,
+                     "mesh": _drive(eng, inp, r_dev, **req_kw)}
+    return out
+
+
+def _serve_keys(mesh, dparams, cfg):
+    """The sharding tag, and one executor asked for the same grid by a
+    bare engine and by a mesh engine."""
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.dist.sharding import SERVE_RULES, use_sharding
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve.executor import RoundExecutor, \
+        ambient_sharding_tag
+
+    tg = uniform_tgrid(SERVE_N)
+    ex = RoundExecutor(make_drift(dparams, cfg), tg, SERVE_N, use_kernel=True)
+    shape = (1, 16, SERVE_LATENT)
+    bare = ContinuousEngine(None, shape, SERVE_N, SERVE_K, tg,
+                            num_slots=SERVE_S, executor=ex, device="cpu")
+    with use_sharding(mesh, SERVE_RULES):
+        tag = ambient_sharding_tag()
+        on_mesh = ContinuousEngine(None, shape, SERVE_N, SERVE_K, tg,
+                                   num_slots=SERVE_S, executor=ex,
+                                   device="cpu")
+    return {"tag": tag, "retraces": ex.retraces,
+            "specs": (repr(bare.spec), repr(on_mesh.spec)),
+            "outside": ambient_sharding_tag()}
+
+
+def _slot_rounds(inp, mesh, params, dparams, cfg):
+    """make_slot_round_body called directly: SLOT_ROUNDS rounds from the
+    same admitted carry, on the mesh (DTensor state) and on one device."""
+    from repro_torch.core.chords import ChordsCarry, make_slot_round_body
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           use_sharding)
+    from repro_torch.serve.executor import place
+
+    tg = uniform_tgrid(SERVE_N)
+    x0 = torch.from_numpy(inp["slot_x0"])
+    i_arr = torch.from_numpy(inp["slot_iarr"])
+    k = SERVE_K
+    x = x0[:, None].expand((x0.shape[0], k) + tuple(x0.shape[1:])).clone()
+    carry = ChordsCarry(x, x.clone(), torch.zeros_like(x), i_arr.clone(),
+                        torch.zeros_like(x))
+    live = torch.ones(x0.shape[0], dtype=torch.bool)
+    ctx = ShardingCtx(mesh, SERVE_RULES)
+    runs = {}
+    for name, drift, c in (
+            ("one", make_drift(params, cfg), None),
+            ("mesh", make_drift(dparams, cfg), ctx)):
+        body = make_slot_round_body(drift, tg, SERVE_N, k)
+        st = place(carry, c, "slots")
+        ia, lv = place(i_arr, c, "slots"), place(live, c, "slots")
+        for r in range(1, SLOT_ROUNDS + 1):
+            rr = place(torch.full((x0.shape[0],), r, dtype=torch.int32), c,
+                       "slots")
+            if c is None:
+                st, _ = body(st, ia, rr, lv)
+            else:
+                with use_sharding(mesh, SERVE_RULES):
+                    st, _ = body(st, ia, rr, lv)
+        runs[name] = [_full(t) for t in st]
+    return runs
+
+
+def _serve_static(inp, mesh, params, dparams, cfg):
+    """ChordsEngine (the stream program, cores on data) on the mesh and on
+    one device, and the bytes its rolls and readbacks put on the wire."""
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import make_drift
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import SERVE_RULES, use_sharding
+    from repro_torch.serve import ChordsEngine, Request
+
+    tg = uniform_tgrid(SERVE_N)
+
+    def serve(drift, ctx_on):
+        eng = ChordsEngine(drift, (16, SERVE_LATENT), SERVE_N, SERVE_K, tg,
+                           max_batch=SERVE_S, use_kernel=True, device="cpu")
+        for i in range(3):
+            eng.submit(Request(rid=i, x0=inp["static_noise"][i]))
+        done = []
+        coll.reset_wire_bytes()
+        while eng.queue:
+            done += eng.step()
+        return ({rid: (o.sample.numpy().copy(), o.rounds_used,
+                       o.accepted_core) for rid, o in done},
+                eng.total_rounds(), coll.wire_bytes(),
+                eng.sampler.program.rounds_run)
+
+    one = serve(make_drift(params, cfg), False)
+    with use_sharding(mesh, SERVE_RULES):
+        mesh_run = serve(make_drift(dparams, cfg), True)
+    return {"one": one, "mesh": mesh_run}
+
+
+def _hybrid_serve(inp, mesh):
+    """The reduced zamba2 hybrid denoiser (seeded port weights) through
+    ContinuousEngine on the mesh and on one device, and one SSD layer's
+    kernel arrangement on a DTensor batch (``ssd_chunk`` on each rank's
+    rows and heads block) against the plain call."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.ode import uniform_tgrid
+    from repro_torch.diffusion import init_wrapper, make_drift
+    from repro_torch.diffusion.wrapper import wrapper_specs
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree, local_dtensor,
+                                           use_sharding)
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunk_batched_ref
+    from repro_torch.models import mamba2
+    from repro_torch.serve import ContinuousEngine
+    from repro_torch.utils import pspec
+
+    cfg = get_config("zamba2-2.7b", reduced=True)
+    ctx = ShardingCtx(mesh, SERVE_RULES)
+    params = init_wrapper(cfg, SERVE_LATENT, device="cpu",
+                          generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        params["out_proj"].normal_(0.0, 0.05,
+                                   generator=torch.Generator().manual_seed(6))
+    dparams = distribute_tree(
+        params, ctx, pspec.logical_axes(wrapper_specs(cfg, SERVE_LATENT)))
+    tg = uniform_tgrid(SERVE_N)
+
+    def engine(p):
+        return ContinuousEngine(make_drift(p, cfg), (1, 16, SERVE_LATENT),
+                                SERVE_N, SERVE_K, tg, num_slots=SERVE_S,
+                                use_kernel=True, device="cpu")
+
+    out = {"one": _drive(engine(params), inp)}
+    with use_sharding(mesh, SERVE_RULES):
+        eng = engine(dparams)
+    out["mesh"] = _drive(eng, inp)
+    ssd = params["backbone"]["mamba"]["ssd"]
+    layer = {k: ssd[k][0] for k in ssd.keys()}
+    x = torch.randn(4, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(8))
+    ref = mamba2.ssd_forward(layer, cfg, x, chunk_fn=ssd_chunk_batched_ref)
+    with use_sharding(mesh, SERVE_RULES):
+        got = mamba2.ssd_forward(
+            layer, cfg, local_dtensor(x, mesh, ctx.placements(
+                ("batch", "seq", "embed_act"), tuple(x.shape))),
+            chunk_fn=ssd_chunk_batched_ref)
+    out["ssd"] = ([_full(got[0]), _full(got[1][0]), _full(got[1][1])],
+                  [ref[0].numpy(), ref[1][0].numpy(), ref[1][1].numpy()])
+    return out
+
+
+def _kernels_on_shards(mesh):
+    """The step and accept kernels, ssd_chunk and the loop condition on
+    DTensor operands (plain versions on the CPU) against the plain call
+    on the whole tensors, and the redistributes counted."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist.sharding import local_dtensor
+    from repro_torch.kernels import mesh as kmesh
+    from repro_torch.kernels.device_loop.ops import loop_step
+    from repro_torch.kernels.device_loop.ref import EXIT_ON_ACCEPT, FIRST
+    from repro_torch.kernels.rectify.ops import (step_rectify,
+                                                 step_rectify_accept)
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk
+
+    g = torch.Generator().manual_seed(7)
+    rows = [Shard(0), Replicate()]
+    lat = [torch.randn(8, 4, 16, generator=g) for _ in range(6)]
+    vec = [torch.randn(8, generator=g), torch.randn(8, generator=g),
+           torch.rand(8, generator=g) > 0.5]
+    prev = torch.randn(4, 4, 16, generator=g)
+    d = [local_dtensor(t, mesh, rows) for t in lat + vec]
+    kmesh.REDISTRIBUTES.clear()
+    out = {"step": (_full(step_rectify(*d, use_kernel=True)),
+                    step_rectify(*lat, *vec).numpy())}
+    for name, pv in (("accept_prev_dtensor", local_dtensor(prev, mesh, rows)),
+                     ("accept_prev_plain", prev)):
+        got = step_rectify_accept(*d[:6], pv, *d[6:], use_kernel=True)
+        ref = step_rectify_accept(*lat, prev, *vec)
+        out[name] = ([_full(t) for t in got], [t.numpy() for t in ref],
+                     [repr(t.placements) for t in got])
+    c = torch.randn(4, 8, 16, generator=g)
+    b = torch.randn(4, 8, 16, generator=g)
+    xdt = torch.randn(4, 4, 8, 8, generator=g)
+    cum = -torch.rand(4, 4, 8, generator=g).cumsum(-1)
+    heads = [Shard(0), Shard(1)]
+    got = ssd_chunk(local_dtensor(c, mesh, rows), local_dtensor(b, mesh, rows),
+                    local_dtensor(xdt, mesh, heads),
+                    local_dtensor(cum, mesh, heads), use_kernel=True)
+    out["ssd_chunk"] = ([_full(t) for t in got],
+                        [t.numpy() for t in ssd_chunk(c, b, xdt, cum)],
+                        [repr(t.placements) for t in got])
+    # the loop condition: rank data-block 0 holds a new accept, block 1 none
+    live = torch.tensor([True, False, True, True])
+    done0 = torch.tensor([False, False, False, False])
+    done = torch.tensor([False, True, False, False])
+    ctrl = torch.tensor([8, 0, 0, 0], dtype=torch.int32)
+    dd = local_dtensor(done0.clone(), mesh, rows)
+    go0 = int(loop_step(local_dtensor(live, mesh, rows),
+                        local_dtensor(done0, mesh, rows), dd, ctrl,
+                        EXIT_ON_ACCEPT | FIRST))
+    go1 = int(loop_step(local_dtensor(live, mesh, rows),
+                        local_dtensor(done, mesh, rows), dd, ctrl,
+                        EXIT_ON_ACCEPT))
+    out["loop"] = (go0, go1, ctrl.tolist())
+    out["redistributes"] = dict(kmesh.REDISTRIBUTES)
+    return out
+
+
+def job_serve(rank: int, world: int, io_dir: str):
+    from repro_torch.diffusion.wrapper import wrapper_specs
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.utils import pspec
+
+    with open(os.path.join(io_dir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    t0 = time.time()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    cfg, params = _dit(inp)
+    dparams = distribute_tree(
+        params, ShardingCtx(mesh, SERVE_RULES),
+        pspec.logical_axes(wrapper_specs(cfg, SERVE_LATENT)))
+    out = {}
+    with torch.no_grad():
+        out["engines"] = _serve_engines(inp, mesh, params, dparams, cfg)
+        print(f"[serve] engines {time.time() - t0:.1f}s", flush=True)
+        out["keys"] = _serve_keys(mesh, dparams, cfg)
+        out["slot_rounds"] = _slot_rounds(inp, mesh, params, dparams, cfg)
+        out["static"] = _serve_static(inp, mesh, params, dparams, cfg)
+        out["kernels"] = _kernels_on_shards(mesh)
+        out["hybrid"] = _hybrid_serve(inp, mesh)
+    print(f"[serve] done {time.time() - t0:.1f}s", flush=True)
+    return out
+
+
+# --- job "lm_serve": W=4, LM prefill and greedy decode on (2, 2) -------------
+
+LM_SERVE_ARCHS = ("qwen1.5-0.5b", "olmoe-1b-7b", "zamba2-2.7b", "xlstm-1.3b",
+                  "seamless-m4t-medium")
+LM_B, LM_S0, LM_MAX, LM_DECODE = 2, 16, 32, 6  # S0: whole SSD chunks
+LM_SRC = 8  # enc-dec source frames
+
+
+def _lm_run(cfg, params, prompt, src=None):
+    """Prefill logits, greedy tokens and the logits of each decode step
+    (fed its own greedy tokens), and the cache's leaves' layout. The
+    tokens come from ``greedy_generate``, enc-dec's (which it does not
+    take) from the decode loop."""
+    from repro_torch.serve import greedy_generate, make_decode_step, \
+        make_prefill
+
+    extra = () if src is None else (src,)
+    logits, cache = make_prefill(cfg, LM_MAX)(params, prompt, *extra)
+    out = {"prefill": _full(logits), "decode": []}
+    out["cache"] = {k: repr(getattr(v, "placements", None))
+                    for k, v in cache.items()}
+    dec = make_decode_step(cfg)
+    toks = [torch.from_numpy(out["prefill"][:, -1:].argmax(-1)).to(
+        torch.int32)]
+    for _ in range(LM_DECODE):
+        logits, cache = dec(params, toks[-1], cache)
+        out["decode"].append(_full(logits))
+        toks.append(torch.from_numpy(out["decode"][-1].argmax(-1)).to(
+            torch.int32))
+    loop = torch.cat([prompt.to(torch.int32)] + toks, dim=1)
+    out["tokens"] = loop.numpy() if src is not None else _full(
+        greedy_generate(cfg, params, prompt, LM_DECODE + 1, LM_MAX))
+    return out
+
+
+def job_lm_serve(rank: int, world: int, io_dir: str):
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree, use_sharding)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.utils import pspec
+
+    with open(os.path.join(io_dir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    t0 = time.time()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    ctx = ShardingCtx(mesh, SERVE_RULES)
+    out = {}
+    with torch.no_grad():
+        for arch in LM_SERVE_ARCHS:
+            cfg = get_config(arch, reduced=True)
+            params = _params(cfg, inp["params"][arch])
+            prompt = torch.from_numpy(inp["prompt"][arch])
+            src = inp["src"].get(arch)
+            src = None if src is None else torch.from_numpy(src)
+            one = _lm_run(cfg, params, prompt, src)
+            dparams = distribute_tree(
+                params, ctx, pspec.logical_axes(api.model_specs(cfg)))
+            with use_sharding(mesh, SERVE_RULES):
+                on_mesh = _lm_run(cfg, dparams, prompt, src)
+                axes = api.get_module(cfg).cache_axes(cfg)
+                want = {k: repr(ctx.placements(ax)) for k, ax in axes.items()
+                        if k != "len"}
+            out[arch] = {"one": one, "mesh": on_mesh, "want": want}
+            print(f"[lm_serve] {arch} {time.time() - t0:.1f}s", flush=True)
+    return out
+
+
 JOBS = {"steps": (job_steps, 4), "one": (job_one, 1),
-        "elastic": (job_elastic, 2)}
+        "elastic": (job_elastic, 2), "serve": (job_serve, 4),
+        "lm_serve": (job_lm_serve, 4)}
 
 
 def _rank(rank: int, job: str, world: int, io_dir: str):
