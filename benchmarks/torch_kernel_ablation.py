@@ -119,6 +119,7 @@ def events_ms(fn, reps: int = 50, iters: int = 7) -> float:
 
 def ablate_ssd(libs, gen, stream):
     import torch
+    from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.kernels.ssd_scan.ref import ssd_chunk_batched_ref
     for shape in ((32, 80, 64, 64, 64), (4, 80, 256, 64, 64)):
         g, h, lc, n, hd = shape
@@ -140,14 +141,18 @@ def ablate_ssd(libs, gen, stream):
             print(json.dumps({"kernel": "ssd_chunk", "variant": name,
                               "shape": list(shape),
                               "device_ms": events_ms(fn)}), flush=True)
+        # every cut launches with the kernel's own launch description
+        meta = SK.launch_meta(g, h, lc, n, hd,
+                              *SK.device_slots(0, n, hd, lc))
         for name, so in libs.items():
             fn = ctypes.CDLL(so).ssd_chunk_fwd
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] + \
-                [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = SK._lib().ssd_chunk_fwd.argtypes
             y = torch.empty_like(x)
             s = torch.empty(g, h, hd, n, device="cuda")
             args = [ctypes.c_void_p(t.data_ptr())
-                    for t in (c, b, x, cum, y, s)] + [g, h, lc, n, hd, stream]
+                    for t in (c, b, x, cum, y, s)] + [
+                g, h, lc, n, hd, SK.head_group(meta), meta.grid[0],
+                meta.dynamic_smem, stream]
             if fn(*args) != 0:
                 raise SystemExit(f"launch of '{name}' failed")
             torch.cuda.synchronize()
@@ -172,9 +177,11 @@ def flash_routes(gen, stream):
             q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
                        .to(dt) for _ in range(3))
             o = torch.empty_like(q)
+            meta = K.launch_meta(dt, dh, b, s, s, h, h, causal)
             args = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o)] + \
                 [b, s, s, h, h, dh, dh ** -0.5, int(causal),
-                 K.DTYPE_CODES[dt], stream]
+                 K.DTYPE_CODES[dt], meta.grid[0], meta.threads,
+                 meta.dynamic_smem, stream]
             ms = events_ms(lambda: lib.flash_attention_fwd(*args))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = events_ms(lambda: F.scaled_dot_product_attention(
@@ -450,8 +457,11 @@ def rmsnorm_plans(gen):
             for name, p in plans.items():
                 if lib != "kernel" and p.variant != K.ROWS_IN_REGISTERS:
                     continue
+                grid_x = rows if p.variant == K.TWO_SWEEPS else \
+                    -(-rows // p.rows_per_block)
+                smem = 0 if p.variant == K.TWO_SWEEPS else 2 * d
                 args = [x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d,
-                        1e-6, K.pack_config(1, 1, p), stream]
+                        1e-6, K.pack_config(1, 1, p), grid_x, smem, stream]
                 y.zero_()
                 if fn(*args):
                     raise SystemExit(f"rmsnorm plan {name} failed to launch")
@@ -473,7 +483,7 @@ def _accept_args(lat, prev, dt, ds, fire, out, sums, plan, stream):
     cluster, span, threads, vec = plan
     return [t.data_ptr() for t in (*lat, prev, dt, ds, fire, out, sums)] + [
         rows, m, rows // prev.shape[0], span,
-        cluster | threads << 4 | vec << 16, stream]
+        cluster | threads << 4 | vec << 16, rows * cluster, stream]
 
 
 def step_plans(gen, rotations: int = 7):
@@ -500,7 +510,8 @@ def step_plans(gen, rotations: int = 7):
     args, bitwise, times, counts = {}, {}, {p: [] for p in plans}, set()
     for plan in plans:
         args[plan] = [t.data_ptr() for t in (*lat, dt, ds, fire, out)] + [
-            rows, m, plan.word, stream]
+            rows, m, plan.word, rows * -(-m // (plan.threads * plan.vec)),
+            stream]
         out.zero_()
         if fn(*args[plan]):
             raise SystemExit(f"step plan {plan} failed to launch")
@@ -577,9 +588,10 @@ def host_path(gen):
     x = torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
     w = torch.ones(d, device="cuda").bfloat16()
     y = torch.empty_like(x)
-    cfg = K.launch_config(d, torch.bfloat16, torch.bfloat16, True)
+    cfg, grid_x, smem = K._launch_args(rows, d, torch.bfloat16,
+                                       torch.bfloat16, True)
     args = [x.data_ptr(), w.data_ptr(), y.data_ptr(), rows, d, 1e-6, cfg,
-            build.stream_handle(0)]
+            grid_x, smem, build.stream_handle(0)]
     bad = list(args)
     bad[6] = cfg | 3 << 2  # an invalid variant: returns before any launch
     lat = [torch.randn(32, 1024, generator=gen, device="cuda")
@@ -592,17 +604,17 @@ def host_path(gen):
     aargs = _accept_args(lat, prev, sc, sc, fire, out, sums, plan,
                          build.stream_handle(0))
     abad = list(aargs)
-    abad[-2] = 0  # cluster 0: returns before any launch
-    step_plan = R.step_plan(32, 1024, True)
+    abad[-3] = 0  # cluster 0: returns before any launch
+    word, grid_x = R._step_args(32, 1024, True)
     sargs = [t.data_ptr() for t in (*lat, sc, sc, fire, out)] + [
-        32, 1024, step_plan.word, build.stream_handle(0)]
+        32, 1024, word, grid_x, build.stream_handle(0)]
     sbad = list(sargs)
-    sbad[-2] = 0  # threads 0: returns before any launch
+    sbad[-3] = 0  # threads 0: returns before any launch
     steps = {
         "F.rms_norm": lambda: F.rms_norm(x, (d,), w, 1e-6),
         "rmsnorm wrapper": lambda: K.rmsnorm(x, w),
         "rmsnorm C call (launch)": lambda: K._fwd()(*args),
-        "rmsnorm C call (no launch, 8 arguments)": lambda: K._fwd()(*bad),
+        "rmsnorm C call (no launch, 10 arguments)": lambda: K._fwd()(*bad),
         "torch.empty_like": lambda: torch.empty_like(x),
         "x.new_empty": lambda: x.new_empty(x.shape),
         "torch.empty(shape, dtype, device)": lambda: torch.empty(
@@ -610,8 +622,8 @@ def host_path(gen):
         "build.stream_handle": lambda: build.stream_handle(0),
         "torch.cuda.current_stream().cuda_stream":
             lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "launch_config (cached)": lambda: K.launch_config(
-            d, torch.bfloat16, torch.bfloat16, True),
+        "launch arguments (cached)": lambda: K._launch_args(
+            rows, d, torch.bfloat16, torch.bfloat16, True),
         "checks (device, dtype, shape, contiguity)": lambda: (
             x.is_cuda and w.is_cuda, w.get_device() != x.get_device(),
             x.dtype in K.DTYPE_CODES, w.dtype in K.DTYPE_CODES,
@@ -619,14 +631,15 @@ def host_path(gen):
         "data_ptr x3": lambda: (x.data_ptr(), w.data_ptr(), y.data_ptr()),
         "step wrapper": lambda: R.fused_step_rectify(*lat, sc, sc, fire),
         "step C call (launch)": lambda: R._step_fn()(*sargs),
-        "step C call (no launch, 14 arguments)": lambda: R._step_fn()(*sbad),
-        "step_plan (cached)": lambda: R.step_plan(32, 1024, True).word,
+        "step C call (no launch, 15 arguments)": lambda: R._step_fn()(*sbad),
+        "step launch arguments (cached)": lambda: R._step_args(32, 1024,
+                                                               True),
         "torch.empty_like (32, 1024)": lambda: torch.empty_like(lat[0]),
         "accept wrapper": lambda: R.fused_step_rectify_accept(
             *lat, prev, sc, sc, fire),
         "accept checks": lambda: R._check_operands(lat, (sc, sc), fire),
         "accept C call (launch)": lambda: R._accept_fn()(*aargs),
-        "accept C call (no launch, 18 arguments)":
+        "accept C call (no launch, 19 arguments)":
             lambda: R._accept_fn()(*abad),
         "accept_plan (cached)": lambda: R.accept_plan(32, 1024, True),
         "data_ptr x11": lambda: [t.data_ptr() for t in (*lat, prev, sc, sc,

@@ -110,10 +110,16 @@ extern "C" {
 // One standalone launch of the condition kernel (no graph, no handle), for
 // tests and timing: the same update of done0 and ctrl as a graph node.
 // `flags`: bit 0 exit at the first new accept (multi), bit 1 entry.
+// `threads` is the launch description's block (kernels/device_loop/
+// kernel.py `launch_meta`: one block of kThreads), checked here.
 int device_loop_step(const void* live, const void* done, void* done0,
-                     void* ctrl, int s, int flags, void* stream) {
-  if (s < 1 || flags < 0 || flags > 3) return (int)cudaErrorInvalidValue;
-  device_loop_kernel<false><<<1, kThreads, 0, (cudaStream_t)stream>>>(
+                     void* ctrl, int s, int flags, int threads,
+                     void* stream) {
+  if (s < 1 || flags < 0 || flags > 3 || threads != kThreads)
+    return (int)cudaErrorInvalidValue;
+  record_launch((const void*)device_loop_kernel<false>, dim3(1),
+                dim3(threads), 0);
+  device_loop_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(
       0, (const uint8_t*)live, (const uint8_t*)done, (uint8_t*)done0,
       (int32_t*)ctrl, s, flags);
   return (int)cudaGetLastError();
@@ -126,15 +132,18 @@ int device_loop_step(const void* live, const void* done, void* done0,
 // after the loop (the stream program's init and finish). live/done/done0
 // are [s] bool (one byte each), ctrl int32[4]. On failure *node_type holds
 // the type of the node instantiation refused (-1 if none) and *result its
-// cudaGraphInstantiateResult.
+// cudaGraphInstantiateResult. `threads` is the condition kernel's block,
+// as for device_loop_step.
 int device_loop_graph_create(void* pre_graph, void* round_graph,
                              void* post_graph, const void* live,
                              const void* done, void* done0, void* ctrl, int s,
-                             void** out, int* node_type, int* result) {
+                             int threads, void** out, int* node_type,
+                             int* result) {
   *out = nullptr;
   *node_type = -1;
   *result = 0;
-  if (s < 1 || !round_graph) return (int)cudaErrorInvalidValue;
+  if (s < 1 || !round_graph || threads != kThreads)
+    return (int)cudaErrorInvalidValue;
   cudaGraph_t g = nullptr;
   cudaError_t e = cudaGraphCreate(&g, 0);
   if (e != cudaSuccess) return (int)e;
@@ -159,7 +168,7 @@ int device_loop_graph_create(void* pre_graph, void* round_graph,
   cudaKernelNodeParams kp = {};
   kp.func = (void*)device_loop_kernel<true>;
   kp.gridDim = dim3(1);
-  kp.blockDim = dim3(kThreads);
+  kp.blockDim = dim3(threads);
   kp.kernelParams = entry_args;
   cudaGraphNode_t entry, loop_node, child, step;
   e = cudaGraphAddKernelNode(&entry, g, pre ? &pre : nullptr, pre ? 1 : 0,

@@ -212,14 +212,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int DH>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int sq, int sk, int nh, int nkv, float scale, int causal,
-               void* stream) {
-  const int smem = (int)smem_bytes<DH>();
+               int grid_x, int threads, int smem, void* stream) {
+  if (grid_x != (sq + kBQ - 1) / kBQ || threads != kThreads ||
+      smem != (int)smem_bytes<DH>())
+    return (int)cudaErrorInvalidValue;
   static int allowed[kMaxDevices] = {};
-  cudaError_t e =
-      allow_smem((const void*)flash_fwd_kernel<float, DH>, smem, allowed);
+  const void* kernel = (const void*)flash_fwd_kernel<float, DH>;
+  cudaError_t e = allow_smem(kernel, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)nh, (unsigned)b);
-  flash_fwd_kernel<float, DH><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  dim3 grid((unsigned)grid_x, (unsigned)nh, (unsigned)b);
+  record_launch(kernel, grid, dim3(threads), smem);
+  flash_fwd_kernel<float, DH><<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk,
       nh, nkv, scale, causal);
   return (int)cudaGetLastError();
@@ -498,18 +501,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
                 int sq, int sk, int nh, int nkv, float scale, int causal,
-                void* stream) {
+                int grid_x, int threads, int smem, void* stream) {
   using Tile = MmaTile<DH>;
-  static int allowed[kMaxDevices] = {};
-  cudaError_t e = allow_smem((const void*)flash_fwd_mma_kernel<DH>,
-                             Tile::bytes(2), allowed);
-  if (e != cudaSuccess) return (int)e;
   // a second K/V buffer only where some q tile streams several KV tiles
   int n_kv = (sk + kBK - 1) / kBK;
   if (causal) n_kv = min(n_kv, (sq + kBQ - 1) / kBQ);
-  const int smem = Tile::bytes(n_kv > 1 ? 2 : 1);
-  dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)nh, (unsigned)b);
-  flash_fwd_mma_kernel<DH><<<grid, kMmaThreads, smem, (cudaStream_t)stream>>>(
+  if (grid_x != (sq + kBQ - 1) / kBQ || threads != kMmaThreads ||
+      smem != Tile::bytes(n_kv > 1 ? 2 : 1))
+    return (int)cudaErrorInvalidValue;
+  static int allowed[kMaxDevices] = {};
+  const void* kernel = (const void*)flash_fwd_mma_kernel<DH>;
+  cudaError_t e = allow_smem(kernel, Tile::bytes(2), allowed);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)grid_x, (unsigned)nh, (unsigned)b);
+  record_launch(kernel, grid, dim3(threads), smem);
+  flash_fwd_mma_kernel<DH><<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, sq, sk, nh, nkv,
       scale * kLog2e, causal);
@@ -519,13 +525,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
 template <bool BF16>
 int dispatch_dh(const void* q, const void* k, const void* v, void* o, int b,
                 int sq, int sk, int nh, int nkv, int dh, float scale,
-                int causal, void* stream) {
+                int causal, int grid_x, int threads, int smem, void* stream) {
 #define FLASH_CASE(D)                                                         \
   case D:                                                                     \
     return BF16 ? launch_bf16<D>(q, k, v, o, b, sq, sk, nh, nkv, scale,       \
-                                 causal, stream)                              \
+                                 causal, grid_x, threads, smem, stream)       \
                 : launch_f32<D>(q, k, v, o, b, sq, sk, nh, nkv, scale,        \
-                                causal, stream);
+                                causal, grid_x, threads, smem, stream);
   switch (dh) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -543,18 +549,24 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o, int b,
 
 extern "C" {
 
-// dtype codes: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor cores)
+// dtype codes: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor cores).
+// `grid_x` (q tiles), `threads` and `smem` (dynamic shared bytes) are the
+// caller's launch description (kernels/flash_attention/kernel.py
+// `launch_meta`), checked against the route before the launch; the grid's y
+// and z are the heads and the batch.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int b, int sq, int sk, int nh, int nkv, int dh,
-                        float scale, int causal, int dtype, void* stream) {
+                        float scale, int causal, int dtype, int grid_x,
+                        int threads, int smem, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0) return 0;
-  if (nkv <= 0 || nh % nkv != 0) return (int)cudaErrorInvalidValue;
+  if (nkv <= 0 || nh % nkv != 0 || nh > 65535 || b > 65535)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_dh<false>(q, k, v, o, b, sq, sk, nh, nkv, dh, scale, causal,
-                              stream);
+                              grid_x, threads, smem, stream);
   if (dtype == 1)
     return dispatch_dh<true>(q, k, v, o, b, sq, sk, nh, nkv, dh, scale, causal,
-                             stream);
+                             grid_x, threads, smem, stream);
   return (int)cudaErrorInvalidValue;
 }
 

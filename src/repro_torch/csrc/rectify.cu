@@ -15,11 +15,13 @@
 // per element against ~0.3 flop per byte, so the kernels only have to stream
 // at the card's memory rate.
 //
-// fused_step_rectify: one launch covers the whole grid (blockIdx.y = row,
-// blockIdx.x = column tile of the row). At the serving shape ([32, 1024],
-// ~1 MB) the kernel is bound by its launch and one round trip of loads, not
-// by its 0.0003 ms of bytes, so the plan (kernels/rectify/kernel.py
-// `step_plan`) cuts each row into tiles until rows x tiles fills the SMs
+// fused_step_rectify: one launch covers the whole grid, the rows folded
+// into x (blockIdx.x = row * tiles + column tile of the row: any row
+// count, where blockIdx.y would stop at 65535 rows). At the serving shape
+// ([32, 1024], ~1 MB) the kernel is bound by its launch and one round trip
+// of loads, not by its 0.0003 ms of bytes, so the plan
+// (kernels/rectify/kernel.py `step_plan`) cuts each row into tiles until
+// rows x tiles fills the SMs
 // (128 blocks of 64 threads there) and each thread takes exactly one piece
 // of VEC columns: its six operand loads (float4 where the operands allow)
 // are all in flight before any arithmetic, so a block costs one round trip
@@ -58,22 +60,23 @@ __device__ __forceinline__ float step_rect(float x, float f, float xu,
   return __fadd_rn(x, __fadd_rn(delta, fire ? rect : 0.0f));
 }
 
-// Thread t of block (bx, row) takes the VEC columns from (bx * blockDim.x +
-// t) * VEC of the row (VEC = 4 needs m % 4 == 0, so a piece never straddles
-// the row's end).
+// Block b is tile b % tiles of row b / tiles; its thread t takes the VEC
+// columns from (tile * blockDim.x + t) * VEC of the row (VEC = 4 needs
+// m % 4 == 0, so a piece never straddles the row's end).
 template <int VEC>
 __global__ void __launch_bounds__(kThreads) step_rectify_kernel(
     const float* __restrict__ x, const float* __restrict__ f,
     const float* __restrict__ xu, const float* __restrict__ fu,
     const float* __restrict__ xs, const float* __restrict__ fs,
     const float* __restrict__ dt, const float* __restrict__ ds,
-    const uint8_t* __restrict__ fire, float* __restrict__ out, int64_t m) {
+    const uint8_t* __restrict__ fire, float* __restrict__ out, int64_t m,
+    unsigned tiles) {
   count_launch(0);
-  const int64_t row = blockIdx.y;
+  const unsigned row = blockIdx.x / tiles, tile = blockIdx.x - row * tiles;
   const int64_t c =
-      ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * (int64_t)VEC;
+      ((int64_t)tile * blockDim.x + threadIdx.x) * (int64_t)VEC;
   if (c >= m) return;
-  const int64_t j = row * m + c;
+  const int64_t j = (int64_t)row * m + c;
   const float d = dt[row], s = ds[row];
   const bool fr = fire[row] != 0;
   if (VEC == 4) {
@@ -105,7 +108,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Block b (cluster rank) of row r's cluster owns columns [b*span,
+// The rows are folded into x: the cluster of blocks [r*C, (r+1)*C) is row
+// r's. Block b (cluster rank) of row r's cluster owns columns [b*span,
 // min(m, (b+1)*span)); thread t takes its VEC-wide pieces t, t + T, ...
 // of them. Each block reduces its partial sums (thread, then warp tree, then
 // the warp partials as one more tree) and writes them into rank 0's shared
@@ -128,7 +132,7 @@ __global__ void __launch_bounds__(kThreads) step_rectify_accept_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const unsigned rank = cluster.block_rank();
-  const int64_t row = blockIdx.y;
+  const int64_t row = blockIdx.x / cluster.num_blocks();
   const float d = dt[row], s = ds[row];
   const bool fr = fire[row] != 0;
   const int64_t base = row * m;
@@ -211,19 +215,21 @@ __global__ void __launch_bounds__(kThreads) step_rectify_accept_kernel(
 extern "C" {
 
 // One launch over [rows, m]: blocks of `threads` threads, `tiles` =
-// ceil(m / (threads * vec)) of them per row, each thread one piece of `vec`
+// ceil(m / (threads * vec)) of them per row, the rows folded into x (grid
+// x = rows * tiles, which the caller passes as `grid_x` from its launch
+// description and this function checks), each thread one piece of `vec`
 // columns. `config` packs the plan of kernels/rectify/kernel.py
-// `step_plan`: bits 0-11 threads, bits 12-15 vec (4: float4 loads, m % 4
-// == 0 and the seven latent pointers 16-byte aligned; or 1). `fire` is read
-// as bytes holding 0 or 1 (a torch.bool tensor).
+// `launch_meta`: bits 0-11 threads, bits 12-15 vec (4: float4 loads,
+// m % 4 == 0 and the seven latent pointers 16-byte aligned; or 1). `fire`
+// is read as bytes holding 0 or 1 (a torch.bool tensor).
 int fused_step_rectify_f32(const void* x, const void* f, const void* xu,
                            const void* fu, const void* xs, const void* fs,
                            const void* dt, const void* ds, const void* fire,
                            void* out, int64_t rows, int64_t m, int config,
-                           void* stream) {
+                           int64_t grid_x, void* stream) {
   if (rows <= 0 || m <= 0) return 0;
   const int threads = config & 4095, vec = (config >> 12) & 15;
-  if (rows > 65535 || threads < 32 || threads > kThreads || threads % 32 ||
+  if (threads < 32 || threads > kThreads || threads % 32 ||
       (vec != 4 && vec != 1))
     return (int)cudaErrorInvalidValue;
   if (vec == 4 && (m % 4 ||
@@ -233,40 +239,50 @@ int fused_step_rectify_f32(const void* x, const void* f, const void* xu,
     return (int)cudaErrorMisalignedAddress;
   const int64_t tile = (int64_t)threads * vec;
   const int64_t tiles = (m + tile - 1) / tile;
-  if (tiles > 2147483647) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)rows);
+  if (tiles > 2147483647 / rows || grid_x != rows * tiles)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)grid_x);
   const cudaStream_t st = (cudaStream_t)stream;
+  const void* kernel = vec == 4 ? (const void*)step_rectify_kernel<4>
+                                : (const void*)step_rectify_kernel<1>;
+  record_launch(kernel, grid, dim3(threads), 0);
   if (vec == 4)
     step_rectify_kernel<4><<<grid, threads, 0, st>>>(
         (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
         (const float*)xs, (const float*)fs, (const float*)dt,
-        (const float*)ds, (const uint8_t*)fire, (float*)out, m);
+        (const float*)ds, (const uint8_t*)fire, (float*)out, m,
+        (unsigned)tiles);
   else
     step_rectify_kernel<1><<<grid, threads, 0, st>>>(
         (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
         (const float*)xs, (const float*)fs, (const float*)dt,
-        (const float*)ds, (const uint8_t*)fire, (float*)out, m);
+        (const float*)ds, (const uint8_t*)fire, (float*)out, m,
+        (unsigned)tiles);
   return (int)cudaGetLastError();
 }
 
 // One launch: a cluster of `cluster` blocks of `threads` threads per row,
-// block b of a row covering columns [b*span, (b+1)*span); `vec` is 4 for
-// float4 loads (m % 4 == 0, operands 16-byte aligned, span % 4 == 0) or 1.
-// `config` packs the plan of kernels/rectify/kernel.py `accept_plan`:
-// bits 0-3 cluster, bits 4-15 threads, bits 16-19 vec (one int keeps the
-// ctypes call short). `fire` is read as bytes holding 0 or 1 (a torch.bool
+// the rows folded into x (grid x = rows * cluster, passed as `grid_x` from
+// the caller's launch description and checked here), block b of a row
+// covering columns [b*span, (b+1)*span); `vec` is 4 for float4 loads
+// (m % 4 == 0, operands 16-byte aligned, span % 4 == 0) or 1. `config`
+// packs the plan of kernels/rectify/kernel.py `launch_meta_accept`: bits
+// 0-3 cluster, bits 4-15 threads, bits 16-19 vec (one int keeps the ctypes
+// call short). `fire` is read as bytes holding 0 or 1 (a torch.bool
 // tensor); `sums` is [2, rows]: err_sq, then out_sq.
 int fused_step_rectify_accept_f32(
     const void* x, const void* f, const void* xu, const void* fu,
     const void* xs, const void* fs, const void* prev, const void* dt,
     const void* ds, const void* fire, void* out, void* sums, int64_t rows,
-    int64_t m, int64_t group, int64_t span, int config, void* stream) {
+    int64_t m, int64_t group, int64_t span, int config, int64_t grid_x,
+    void* stream) {
   if (rows <= 0 || m <= 0) return 0;
   const int cluster = config & 15, threads = (config >> 4) & 4095;
   const int vec = (config >> 16) & 15;
-  if (rows > 65535 || cluster < 1 || cluster > kMaxCluster || span < 1 ||
+  if (cluster < 1 || cluster > kMaxCluster || span < 1 ||
       (int64_t)cluster * span < m || threads < 32 || threads > kThreads ||
-      threads % 32 || group < 1 || rows % group)
+      threads % 32 || group < 1 || rows % group ||
+      rows > 2147483647 / cluster || grid_x != rows * cluster)
     return (int)cudaErrorInvalidValue;
   if (vec == 4 && (m % 4 || span % 4 ||
                    ((uintptr_t)x | (uintptr_t)f | (uintptr_t)xu |
@@ -275,7 +291,7 @@ int fused_step_rectify_accept_f32(
     return (int)cudaErrorMisalignedAddress;
   if (vec != 4 && vec != 1) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster, (unsigned)rows);
+  cfg.gridDim = dim3((unsigned)grid_x);
   cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = (cudaStream_t)stream;
@@ -286,13 +302,16 @@ int fused_step_rectify_accept_f32(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  auto kernel = vec == 4 ? step_rectify_accept_kernel<4>
+                         : step_rectify_accept_kernel<1>;
+  record_launch((const void*)kernel, cfg.gridDim, cfg.blockDim, 0,
+                dim3((unsigned)cluster));
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, vec == 4 ? step_rectify_accept_kernel<4>
-                     : step_rectify_accept_kernel<1>,
-      (const float*)x, (const float*)f, (const float*)xu, (const float*)fu,
-      (const float*)xs, (const float*)fs, (const float*)prev,
-      (const float*)dt, (const float*)ds, (const uint8_t*)fire, (float*)out,
-      (float*)sums, (float*)sums + rows, m, group, span);
+      &cfg, kernel, (const float*)x, (const float*)f, (const float*)xu,
+      (const float*)fu, (const float*)xs, (const float*)fs,
+      (const float*)prev, (const float*)dt, (const float*)ds,
+      (const uint8_t*)fire, (float*)out, (float*)sums, (float*)sums + rows,
+      m, group, span);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -226,25 +226,37 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
+// Launch with the grid and dynamic shared memory of the caller's launch
+// description (kernels/rmsnorm/kernel.py `launch_meta`), after checking them
+// against the plan: rows in registers takes ceil(rows / groups) blocks of
+// (tpr, groups) threads and d elements of w in shared memory, two sweeps
+// one block of kBlockThreads per row and none.
 template <typename TX, typename TW, int VEC>
 int launch(const void* x, const void* w, void* y, int64_t rows, int d,
            float eps, int variant, int tpr, int nv, int groups,
-           cudaStream_t st) {
+           int64_t grid_x, int64_t smem, cudaStream_t st) {
+  const dim3 block(tpr, groups);
   if (variant == 0) {
     if (tpr % 32 || tpr < 32 || groups < 1 || tpr * groups > kBlockThreads ||
         nv < 1 || nv > kMaxVecs ||
         (int64_t)tpr * nv * VEC < d)
       return (int)cudaErrorInvalidValue;
-    const int64_t grid = (rows + groups - 1) / groups;
-    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(TW) * (size_t)d;
-    rmsnorm_rows_kernel<TX, TW, VEC>
-        <<<(unsigned)grid, dim3(tpr, groups), smem, st>>>(
-            (const TX*)x, (const TW*)w, (TX*)y, rows, d, eps, nv);
+    if (grid_x != (rows + groups - 1) / groups || grid_x > 0x7fffffffLL ||
+        smem != (int64_t)sizeof(TW) * d)
+      return (int)cudaErrorInvalidValue;
+    auto kernel = rmsnorm_rows_kernel<TX, TW, VEC>;
+    record_launch((const void*)kernel, dim3((unsigned)grid_x), block,
+                  (size_t)smem);
+    kernel<<<(unsigned)grid_x, block, (size_t)smem, st>>>(
+        (const TX*)x, (const TW*)w, (TX*)y, rows, d, eps, nv);
   } else if (variant == 1) {
-    if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    rmsnorm_sweep_kernel<TX, TW, VEC><<<(unsigned)rows, kBlockThreads, 0, st>>>(
-        (const TX*)x, (const TW*)w, (TX*)y, d, eps);
+    if (grid_x != rows || rows > 0x7fffffffLL || smem != 0 ||
+        tpr != kBlockThreads || groups != 1)
+      return (int)cudaErrorInvalidValue;
+    auto kernel = rmsnorm_sweep_kernel<TX, TW, VEC>;
+    record_launch((const void*)kernel, dim3((unsigned)grid_x), block, 0);
+    kernel<<<(unsigned)grid_x, block, 0, st>>>((const TX*)x, (const TW*)w,
+                                               (TX*)y, d, eps);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -254,17 +266,17 @@ int launch(const void* x, const void* w, void* y, int64_t rows, int d,
 template <typename TX, typename TW>
 int dispatch_vec(const void* x, const void* w, void* y, int64_t rows, int d,
                  float eps, int vec, int variant, int tpr, int nv, int groups,
-                 cudaStream_t st) {
+                 int64_t grid_x, int64_t smem, cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(TX);
   if (vec == kVec) {
     if (d % kVec || ((uintptr_t)x | (uintptr_t)w | (uintptr_t)y) % 16)
       return (int)cudaErrorMisalignedAddress;
     return launch<TX, TW, kVec>(x, w, y, rows, d, eps, variant, tpr, nv,
-                                groups, st);
+                                groups, grid_x, smem, st);
   }
   if (vec == 1)
     return launch<TX, TW, 1>(x, w, y, rows, d, eps, variant, tpr, nv, groups,
-                             st);
+                             grid_x, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -277,8 +289,11 @@ extern "C" {
 // 1 = bfloat16), bits 2-3 variant (0 = rows in registers, 1 = two sweeps),
 // bits 4-7 vec, bits 8-11 vecs_per_thread, bits 12-23 threads_per_row,
 // bits 24-30 rows_per_block. One int keeps the ctypes call short.
+// `grid_x` and `smem` are the launch description's grid and dynamic shared
+// bytes (checked against the plan before the launch).
 int rmsnorm_fwd(const void* x, const void* w, void* y, int64_t rows, int64_t d,
-                float eps, int config, void* stream) {
+                float eps, int config, int64_t grid_x, int64_t smem,
+                void* stream) {
   if (rows <= 0 || d <= 0) return 0;
   if (d > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int x_dtype = config & 1, w_dtype = (config >> 1) & 1;
@@ -287,7 +302,8 @@ int rmsnorm_fwd(const void* x, const void* w, void* y, int64_t rows, int64_t d,
   const int groups = (config >> 24) & 127;
   const cudaStream_t st = (cudaStream_t)stream;
   const int dd = (int)d;
-#define RMSNORM_ARGS x, w, y, rows, dd, eps, vec, variant, tpr, nv, groups, st
+#define RMSNORM_ARGS \
+  x, w, y, rows, dd, eps, vec, variant, tpr, nv, groups, grid_x, smem, st
   if (x_dtype == 0 && w_dtype == 0)
     return dispatch_vec<float, float>(RMSNORM_ARGS);
   if (x_dtype == 1 && w_dtype == 1)

@@ -20,9 +20,9 @@
 // the memory rate at once.
 //
 // Design: one block of 256 threads per (g, group of hg consecutive heads);
-// the launcher picks hg in [1, 8] so that the grid fills whole waves of
-// resident blocks (hg = 5 at the serving shape on 132 SMs: 512 blocks, two
-// per SM). The block holds B of the whole chunk in shared memory. For each
+// the launch description (kernels/ssd_scan/kernel.py `pick_group`) picks hg
+// in [1, 8] so that the grid fills whole waves of resident blocks (hg = 5
+// at the serving shape on 132 SMs: 512 blocks, two per SM). The block holds B of the whole chunk in shared memory. For each
 // 64-row l-tile it computes the causal C B^T tiles [l-tile, m-tiles <= l]
 // once into shared memory (stored transposed, Gt[m][l]; micro-tiles above
 // the diagonal left out) and then walks the heads of its group over them,
@@ -312,96 +312,91 @@ ssd_chunk_kernel(const float* __restrict__ cmat, const float* __restrict__ bmat,
   }
 }
 
-// The head-group size: the grid G * ceil(H / hg) runs in waves of
-// `slots` resident blocks, and a block costs about hg head steps plus a
-// third of one for its C B^T (the causal half of 64^3 FMAs, against
-// ~1.5 x 64^3 for a head step's products): minimise waves * (3 hg + 1),
-// the larger hg on a tie.
-int pick_group(int64_t g, int nh, int64_t slots) {
-  int best = 1;
-  int64_t best_cost = -1;
-  for (int hg = 1; hg <= kMaxGroup && hg <= nh; ++hg) {
-    const int64_t blocks = g * ((nh + hg - 1) / hg);
-    const int64_t cost = (blocks + slots - 1) / slots * (3 * hg + 1);
-    if (best_cost < 0 || cost <= best_cost) {
-      best = hg;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
+// Launch with the head group, grid and dynamic shared memory of the
+// caller's launch description (kernels/ssd_scan/kernel.py `launch_meta`,
+// which picks the group from the card's SM count and the blocks an SM
+// holds, `ssd_chunk_occupancy`), after checking them.
 template <int N, int HD>
 int launch(const void* c, const void* b, const void* x, const void* cum,
-           void* y, void* s, int64_t g, int nh, int lc, void* stream) {
+           void* y, void* s, int64_t g, int nh, int lc, int hg,
+           int64_t grid_x, int smem, void* stream) {
   using S = Smem<N, HD>;
   const void* kernel = (const void*)ssd_chunk_kernel<N, HD>;
   static int allowed[kMaxDevices] = {};
-  static int occ_smem[kMaxDevices] = {}, occ_slots[kMaxDevices] = {};
-  if (lc > kMaxLc) return (int)cudaErrorInvalidValue;
-  const int smem = (int)(sizeof(float) * S::floats((lc + kT - 1) / kT));
+  if (lc > kMaxLc || hg < 1 || hg > kMaxGroup || hg > nh ||
+      grid_x != g * ((nh + hg - 1) / hg) || grid_x > 0x7fffffffLL ||
+      smem != (int)(sizeof(float) * S::floats((lc + kT - 1) / kT)))
+    return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = allow_smem(
       kernel, (int)(sizeof(float) * S::floats(kMaxLc / kT)), allowed, &dev);
   if (e != cudaSuccess) return (int)e;
-  int slots = 0;
-  if (dev < kMaxDevices && occ_smem[dev] == smem) {
-    slots = occ_slots[dev];
-  } else {
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    slots = per_sm * sms;
-    if (slots <= 0) return (int)cudaErrorInvalidConfiguration;
-    if (dev < kMaxDevices) {
-      occ_smem[dev] = smem;
-      occ_slots[dev] = slots;
-    }
-  }
-  const int hg = pick_group(g, nh, slots);
-  const int64_t blocks = g * ((nh + hg - 1) / hg);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ssd_chunk_kernel<N, HD><<<(unsigned)blocks, kThreads, smem,
+  record_launch(kernel, dim3((unsigned)grid_x), dim3(kThreads), smem);
+  ssd_chunk_kernel<N, HD><<<(unsigned)grid_x, kThreads, smem,
                             (cudaStream_t)stream>>>(
       (const float*)c, (const float*)b, (const float*)x, (const float*)cum,
       (float*)y, (float*)s, nh, lc, hg);
   return (int)cudaGetLastError();
 }
 
-template <int N>
-int dispatch_hd(const void* c, const void* b, const void* x, const void* cum,
-                void* y, void* s, int64_t g, int nh, int lc, int hd,
-                void* stream) {
-  switch (hd) {
-    case 8: return launch<N, 8>(c, b, x, cum, y, s, g, nh, lc, stream);
-    case 16: return launch<N, 16>(c, b, x, cum, y, s, g, nh, lc, stream);
-    case 32: return launch<N, 32>(c, b, x, cum, y, s, g, nh, lc, stream);
-    case 64: return launch<N, 64>(c, b, x, cum, y, s, g, nh, lc, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// Resident blocks an SM holds of the (N, HD) kernel at lc's shared memory,
+// after raising the kernel's limit as `launch` does.
+template <int N, int HD>
+int occupancy(int lc, int* per_sm) {
+  using S = Smem<N, HD>;
+  const void* kernel = (const void*)ssd_chunk_kernel<N, HD>;
+  static int allowed[kMaxDevices] = {};
+  if (lc < 1 || lc > kMaxLc) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = allow_smem(
+      kernel, (int)(sizeof(float) * S::floats(kMaxLc / kT)), allowed, &dev);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = (int)(sizeof(float) * S::floats((lc + kT - 1) / kT));
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                            kThreads, smem);
 }
+
+#define SSD_DISPATCH(FN, ...)                           \
+  switch (n * 100 + hd) {                               \
+    SSD_HD(8, FN, __VA_ARGS__)                          \
+    SSD_HD(16, FN, __VA_ARGS__)                         \
+    SSD_HD(32, FN, __VA_ARGS__)                         \
+    SSD_HD(64, FN, __VA_ARGS__)                         \
+    default:                                            \
+      return (int)cudaErrorInvalidValue;                \
+  }
+#define SSD_HD(N, FN, ...)                              \
+  case N * 100 + 8: return FN<N, 8>(__VA_ARGS__);       \
+  case N * 100 + 16: return FN<N, 16>(__VA_ARGS__);     \
+  case N * 100 + 32: return FN<N, 32>(__VA_ARGS__);     \
+  case N * 100 + 64: return FN<N, 64>(__VA_ARGS__);
 
 }  // namespace
 
 extern "C" {
 
 // c/b [g, lc, n], x [g, nh, lc, hd], cum [g, nh, lc] -> y [g, nh, lc, hd],
-// s [g, nh, hd, n]; all f32, contiguous, 16-byte aligned.
+// s [g, nh, hd, n]; all f32, contiguous, 16-byte aligned. `hg` (heads a
+// block), `grid_x` (g * ceil(nh / hg) blocks) and `smem` (dynamic shared
+// bytes) come from the caller's launch description.
 int ssd_chunk_fwd(const void* c, const void* b, const void* x,
                   const void* cum, void* y, void* s, int64_t g, int nh,
-                  int lc, int n, int hd, void* stream) {
+                  int lc, int n, int hd, int hg, int64_t grid_x, int smem,
+                  void* stream) {
   if (g <= 0 || nh <= 0 || lc <= 0) return 0;
-  switch (n) {
-    case 8: return dispatch_hd<8>(c, b, x, cum, y, s, g, nh, lc, hd, stream);
-    case 16: return dispatch_hd<16>(c, b, x, cum, y, s, g, nh, lc, hd, stream);
-    case 32: return dispatch_hd<32>(c, b, x, cum, y, s, g, nh, lc, hd, stream);
-    case 64: return dispatch_hd<64>(c, b, x, cum, y, s, g, nh, lc, hd, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  SSD_DISPATCH(launch, c, b, x, cum, y, s, g, nh, lc, hg, grid_x, smem,
+               stream)
 }
+
+// Resident blocks of 256 threads an SM holds of the (n, hd) kernel at
+// chunk length lc, into *per_sm: what the launch description's head group
+// is chosen for (the card's SM count times this is a wave).
+int ssd_chunk_occupancy(int n, int hd, int lc, int* per_sm) {
+  SSD_DISPATCH(occupancy, lc, per_sm)
+}
+
+#undef SSD_HD
+#undef SSD_DISPATCH
 
 const char* ssd_scan_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

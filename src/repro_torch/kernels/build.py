@@ -28,7 +28,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 FAMILIES = ("rectify", "rmsnorm", "flash_attention", "ssd_scan",
@@ -154,6 +154,40 @@ def launch_counts(name: str, n: int, reset: bool = False) -> list:
     fn.restype = ctypes.c_int
     check(lib, name, fn(out, n, int(bool(reset))))
     return list(out)
+
+
+class LastLaunch(NamedTuple):
+    """A family's last launch as its library recorded it
+    (``csrc/launch_count.cuh``): what the host asked for, and from
+    ``cudaFuncGetAttributes`` the launched kernel's static shared bytes,
+    dynamic shared limit and registers a thread."""
+    grid: tuple
+    block: tuple
+    cluster: tuple
+    dynamic_smem: int
+    static_smem: int
+    max_dynamic_smem: int
+    registers: int
+
+    def geometry(self) -> tuple:
+        """As ``kernels.meta.geometry`` gives a launch description."""
+        return (self.grid, self.block, self.cluster, self.dynamic_smem,
+                self.static_smem)
+
+
+def last_launch(name: str) -> Optional[LastLaunch]:
+    """The geometry of family ``name``'s last launch in this process
+    (None when its library was never loaded)."""
+    lib = _libs.get(name)
+    if lib is None:
+        return None
+    out = (ctypes.c_longlong * 13)()
+    fn = lib.last_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    check(lib, name, fn(out, 13))
+    v = list(out)
+    return LastLaunch(tuple(v[0:3]), tuple(v[3:6]), tuple(v[6:9]), *v[9:])
 
 
 def ptr(t) -> ctypes.c_void_p:

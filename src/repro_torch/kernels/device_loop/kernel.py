@@ -27,9 +27,32 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.meta import CudaLaunch, OperandTile, dims3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+THREADS = 128  # threads of the one block (csrc kThreads)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_meta(s: int) -> CudaLaunch:
+    """The condition kernel over S slot flags: one block of ``THREADS``,
+    one pass over the flags; ``done0`` and the control words written (the
+    same geometry as a loop program's kernel nodes)."""
+    def whole(bx, by, bz):
+        return (0,)
+
+    flags = [OperandTile(n, (s,), "bool", (s,), whole)
+             for n in ("live", "done")]
+    outs = (OperandTile("done0", (s,), "bool", (s,), whole),
+            OperandTile("ctrl", (4,), "int32", (4,), whole))
+    return CudaLaunch("device_loop.device_loop_kernel", dims3(1),
+                      dims3(THREADS), tuple(flags) + outs[1:], outs)
+
+
+def outputs(live, done, done0, ctrl, *_):
+    """What the wrapper returns (the condition, a view of ``ctrl``)."""
+    return ctrl[3]
 
 
 def _lib():
@@ -41,8 +64,8 @@ def _fn(name: str):
     """The typed C entry points."""
     fn = getattr(_lib(), name)
     fn.argtypes = {
-        "device_loop_step": [_P] * 4 + [_I, _I, _P],
-        "device_loop_graph_create": [_P] * 7 + [_I, _P, _P, _P],
+        "device_loop_step": [_P] * 4 + [_I, _I, _I, _P],
+        "device_loop_graph_create": [_P] * 7 + [_I, _I, _P, _P, _P],
         "device_loop_graph_launch": [_P, _P],
         "device_loop_graph_destroy": [_P],
         "device_loop_versions": [_P, _P],
@@ -88,8 +111,8 @@ def loop_step(live, done, done0, ctrl, flags: int):
     s = _flags_operands(live, done, done0, ctrl)
     _check(_fn("device_loop_step")(
         live.data_ptr(), done.data_ptr(), done0.data_ptr(), ctrl.data_ptr(),
-        s, int(flags), build.stream_handle(live.get_device())))
-    return ctrl[3]
+        s, int(flags), THREADS, build.stream_handle(live.get_device())))
+    return outputs(live, done, done0, ctrl)
 
 
 def graph_create(round_graph: int, live, done, done0, ctrl,
@@ -106,8 +129,8 @@ def graph_create(round_graph: int, live, done, done0, ctrl,
     err = _fn("device_loop_graph_create")(
         pre_graph or None, round_graph, post_graph or None,
         live.data_ptr(), done.data_ptr(), done0.data_ptr(),
-        ctrl.data_ptr(), s, ctypes.byref(out), ctypes.byref(node),
-        ctypes.byref(result))
+        ctrl.data_ptr(), s, launch_meta(s).block[0], ctypes.byref(out),
+        ctypes.byref(node), ctypes.byref(result))
     if err:
         raise RuntimeError(
             f"device loop graph not built: cudaError {err} "

@@ -13,20 +13,26 @@ keeps the CUDA-core kernel (f32 FMAs; a bf16 or TF32 product cannot hold
 the 2e-5 contract), bound by its shared-memory operand traffic. Sq/Sk
 tails are masked in the kernels. Head dims 16, 32, 64, 80, 128 and 256
 are compiled (80: ``zamba2-2.7b``'s shared block; 16: its reduced config;
-256: ``gemma-7b``); :func:`plan` mirrors each launch's grid and shared
-memory, which the CPU tests hold to the card's 227 KB a block.
+256: ``gemma-7b``). :func:`launch_meta` describes each launch
+(``kernels/meta.py``: grid, threads, shared memory, the tiles a block
+reads and writes); the wrapper passes its grid, threads and shared bytes
+to the C entry point, which checks them against the route and launches
+with them, and the CPU tests hold its shared memory to the card's 227 KB
+a block (:func:`plan` is a view of it).
 CUDA tensors only; ``ops.py`` picks the plain version for CPU tensors.
 The kernels count their launches on the device (``kernels.launch_counts``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.meta import CudaLaunch, OperandTile, dims3
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
@@ -41,34 +47,78 @@ class FlashPlan(NamedTuple):
     grid: tuple    # (q tiles, heads, batch)
 
 
-def plan(dtype, dh: int, b: int, sq: int, sk: int, h: int,
-         causal: bool) -> FlashPlan:
-    """The launch ``csrc/flash_attention.cu`` makes for these shapes (its
-    ``launch_bf16`` / ``launch_f32``): bf16 holds Q and one or two K/V
-    buffers of 64 rows padded by 16 bytes; f32 holds Q, K, V and P widened
-    to f32 with one float of padding a row."""
+@functools.lru_cache(maxsize=512)
+def launch_meta(dtype, dh: int, b: int, sq: int, sk: int, h: int, kvh: int,
+                causal: bool) -> CudaLaunch:
+    """The launch ``csrc/flash_attention.cu`` makes for these shapes:
+    grid (q tiles of ``BQ`` rows, heads, batch); bf16 holds Q and one or
+    two K/V buffers of 64 rows padded by 16 bytes (two only where some q
+    tile streams several KV tiles), f32 Q, K, V and P widened to f32 with
+    one float of padding a row. Block (x, y, z) writes rows [x*BQ,
+    (x+1)*BQ) of head y of batch z and reads K/V of its KV head over the
+    KV tiles it streams (tails masked in the kernels)."""
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash kernel: head_dim {dh} not in {HEAD_DIMS}")
-    grid = ((sq + BQ - 1) // BQ, h, b)
+    q_tiles = (sq + BQ - 1) // BQ
+    n_kv = (sk + BK - 1) // BK
     if dtype == torch.bfloat16:
-        n_kv = (sk + BK - 1) // BK
         if causal:
-            n_kv = min(n_kv, (sq + BQ - 1) // BQ)
+            n_kv = min(n_kv, q_tiles)
         tile = 2 * BQ * (dh + 8)
-        return FlashPlan("flash_fwd_mma_kernel", 128,
-                         tile * (1 + 2 * (2 if n_kv > 1 else 1)), grid)
-    if dtype == torch.float32:
+        name, threads = "flash_attention.flash_fwd_mma_kernel", 128
+        smem = tile * (1 + 2 * (2 if n_kv > 1 else 1))
+    elif dtype == torch.float32:
+        name, threads = "flash_attention.flash_fwd_kernel", 256
         smem = 4 * (BQ * (dh + 1) + BK * (dh + 1) + BK * dh + BQ * (BK + 1))
-        return FlashPlan("flash_fwd_kernel", 256, smem, grid)
-    raise ValueError(f"flash kernel: dtype {dtype} is neither f32 nor bf16")
+    else:
+        raise ValueError(f"flash kernel: dtype {dtype} is neither f32 nor "
+                         f"bf16")
+    group = h // kvh
+    dt = str(dtype).removeprefix("torch.")
+
+    def q_rows(bx, by, bz):
+        return (bz, bx * BQ, by, 0)
+
+    def kv_rows(bx, by, bz):
+        return (bz, 0, by // group, 0)
+
+    q = OperandTile("q", (b, sq, h, dh), dt, (1, BQ, 1, dh), q_rows, (1,))
+    kv = [OperandTile(n, (b, sk, kvh, dh), dt, (1, n_kv * BK, 1, dh),
+                      kv_rows, (1,)) for n in ("k", "v")]
+    o = OperandTile("o", (b, sq, h, dh), dt, (1, BQ, 1, dh), q_rows, (1,))
+    return CudaLaunch(name, dims3(q_tiles, h, b), dims3(threads),
+                      (q, *kv), (o,), dynamic_smem=smem, smem_opt_in=True)
+
+
+def plan(dtype, dh: int, b: int, sq: int, sk: int, h: int,
+         causal: bool) -> FlashPlan:
+    """:func:`launch_meta`'s kernel, threads, dynamic shared memory and
+    grid (which do not depend on the KV heads)."""
+    m = launch_meta(dtype, dh, b, sq, sk, h, h, causal)
+    return FlashPlan(m.kernel.split(".")[1], m.threads, m.dynamic_smem,
+                     m.grid)
+
+
+@functools.lru_cache(maxsize=512)
+def _launch_args(dtype, dh: int, b: int, sq: int, sk: int, h: int, kvh: int,
+                 causal: bool):
+    """(grid x, threads, dynamic shared bytes) of :func:`launch_meta`, as
+    ``flash_attention_fwd`` takes them."""
+    m = launch_meta(dtype, dh, b, sq, sk, h, kvh, causal)
+    return m.grid[0], m.threads, m.dynamic_smem
+
+
+def outputs(q, *_):
+    """The output the wrapper allocates for (contiguous) ``q``."""
+    return torch.empty_like(q)
 
 
 def _lib():
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_void_p]
+            [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5 + \
+            [ctypes.c_void_p]
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -92,11 +142,14 @@ def flash_attention(q, k, v, causal: bool = True,
                          f"{h} heads not a multiple of {kvh} KV heads")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     qc, kc, vc = (build.operand(t) for t in (q, k, v))
-    out = torch.empty_like(qc)
+    out = outputs(qc)
+    causal = bool(causal)
     lib = _lib()
     err = lib.flash_attention_fwd(
         build.ptr(qc), build.ptr(kc), build.ptr(vc), build.ptr(out),
-        b, sq, sk, h, kvh, dh, float(scale), int(bool(causal)),
-        DTYPE_CODES[q.dtype], build.stream_handle(q.get_device()))
+        b, sq, sk, h, kvh, dh, float(scale), int(causal),
+        DTYPE_CODES[q.dtype],
+        *_launch_args(q.dtype, dh, b, sq, sk, h, kvh, causal),
+        build.stream_handle(q.get_device()))
     build.check(lib, "flash_attention", err)
     return out

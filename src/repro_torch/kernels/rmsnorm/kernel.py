@@ -18,11 +18,15 @@ Vectors are 16 bytes when the width is a multiple of 8 bf16 or 4 f32 and
 x and w are 16-byte aligned, one element otherwise (an unaligned view is
 normalized where it lies, without a copy).
 
-The wrapper is lean, because the served models call it 73 or 82 times a
-round: no reshape or copy of a contiguous input, one ``torch.empty_like``,
-pointers and the current stream's raw handle passed as plain ints, the
-dtypes and the plan packed into one cached int (:func:`launch_config`), so
-the ctypes call takes eight arguments. CUDA tensors only; ``ops.py``
+:func:`launch_meta` describes the launch (``kernels/meta.py``); the
+wrapper hands its grid and dynamic shared bytes to the C entry point, which
+checks them against the plan and launches with them. The wrapper is lean,
+because the served models call it 73 or 82 times a round: no reshape or
+copy of a contiguous input, one ``torch.empty_like``, pointers and the
+current stream's raw handle passed as plain ints, the dtypes and the plan
+packed into one int and the launch's grid and shared bytes beside it, all
+three cached (:func:`_launch_args`), so the ctypes call takes ten
+arguments. CUDA tensors only; ``ops.py``
 picks the plain version for CPU tensors. The kernels count their launches
 on the device (``kernels.launch_counts``).
 """
@@ -35,12 +39,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.meta import CudaLaunch, OperandTile, dims3
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_VECS = 4            # vectors a thread holds of a row (csrc kMaxVecs)
 BLOCK_THREADS = 256     # threads of a block, and at most of a row
                         # (csrc kBlockThreads)
 ROWS_IN_REGISTERS, TWO_SWEEPS = 0, 1
+STATIC_SMEM = 4 * (BLOCK_THREADS // 32)  # both variants' warp partials
 
 
 class Plan(NamedTuple):
@@ -86,12 +92,66 @@ def pack_config(x_code: int, w_code: int, p: Plan) -> int:
             | p.rows_per_block << 24)
 
 
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_meta(rows: int, d: int, x_dtype: torch.dtype,
+                w_dtype: torch.dtype, aligned: bool = True) -> CudaLaunch:
+    """The launch over x [rows, d] and w [d] (:func:`plan`): rows in
+    registers takes ``rows_per_block`` whole rows a block (the block's rows
+    past ``rows`` masked) and w in dynamic shared memory; two sweeps one
+    row a block."""
+    p = plan(d, x_dtype, aligned)
+    xd, wd = _name(x_dtype), _name(w_dtype)
+    w = OperandTile("w", (d,), wd, (d,), lambda bx, by, bz: (0,))
+    if p.variant == ROWS_IN_REGISTERS:
+        rpb = p.rows_per_block
+
+        def rows_of(bx, by, bz):
+            return (bx * rpb, 0)
+
+        x = OperandTile("x", (rows, d), xd, (rpb, d), rows_of, (0,))
+        y = OperandTile("y", (rows, d), xd, (rpb, d), rows_of, (0,))
+        return CudaLaunch("rmsnorm.rmsnorm_rows_kernel",
+                          dims3(-(-rows // rpb)),
+                          dims3(p.threads_per_row, rpb), (x, w), (y,),
+                          dynamic_smem=w_dtype.itemsize * d,
+                          static_smem=STATIC_SMEM)
+
+    def row(bx, by, bz):
+        return (bx, 0)
+
+    x = OperandTile("x", (rows, d), xd, (1, d), row)
+    y = OperandTile("y", (rows, d), xd, (1, d), row)
+    return CudaLaunch("rmsnorm.rmsnorm_sweep_kernel", dims3(rows),
+                      dims3(p.threads_per_row), (x, w), (y,),
+                      static_smem=STATIC_SMEM)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_args(rows: int, d: int, x_dtype: torch.dtype,
+                 w_dtype: torch.dtype, aligned: bool):
+    """(packed config, grid x, dynamic shared bytes) of
+    :func:`launch_meta`, as ``rmsnorm_fwd`` takes them."""
+    launch = launch_meta(rows, d, x_dtype, w_dtype, aligned)
+    return (launch_config(d, x_dtype, w_dtype, aligned), launch.grid[0],
+            launch.dynamic_smem)
+
+
+def outputs(x, *_):
+    """The output the wrapper allocates for ``x``."""
+    return torch.empty_like(x)
+
+
 @functools.cache
 def _fwd():
     """The typed C entry point (built and loaded at first use)."""
     fn = build.load("rmsnorm").rmsnorm_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
                                            ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_int64, ctypes.c_int64,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -114,9 +174,13 @@ def rmsnorm(x, w, eps: float = 1e-6):
     if not w.is_contiguous():
         w = w.contiguous()
     xp, wp = x.data_ptr(), w.data_ptr()
-    out = torch.empty_like(x)
-    err = _fwd()(xp, wp, out.data_ptr(), x.numel() // d if d else 0, d, eps,
-                 launch_config(d, x.dtype, w.dtype, (xp | wp) % 16 == 0),
+    out = outputs(x)
+    rows = x.numel() // d if d else 0
+    if not rows:
+        return out
+    config, grid_x, smem = _launch_args(rows, d, x.dtype, w.dtype,
+                                        (xp | wp) % 16 == 0)
+    err = _fwd()(xp, wp, out.data_ptr(), rows, d, eps, config, grid_x, smem,
                  build.stream_handle(x.get_device()))
     if err:
         build.check(build.load("rmsnorm"), "rmsnorm", err)

@@ -199,6 +199,20 @@ class SlotState(NamedTuple):
     lanes: object = ()
 
 
+class ProgramRecord(NamedTuple):
+    """One enumerable program: a fresh body and example arguments.
+
+    The static analysis (``repro_torch.analysis``) traces
+    ``make_fx(fn, tracing_mode="real")(*args)`` of each, on the executor's
+    device, without building a grid or touching the cache.
+    """
+
+    name: str     # e.g. "grid[S=4,K=4,(8,),float32]/round"
+    kind: str     # round | admit | multi | roll | stream | migrate
+    fn: Callable
+    args: Tuple   # tensors (pytrees) matching the program's signature
+
+
 class GridPrograms(NamedTuple):
     """One GridSpec's program set (shared via the executor cache).
 
@@ -366,6 +380,14 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
             lanes=lane_init_state(s, k, dev) if hetero else (),
         ), ctx, "slots")
 
+    def loop_body(st: SlotState, done0, ctrl, flags: int):
+        """One pass of the device loop's body: the round, then the loop's
+        condition on the state it returns (``done0`` and ``ctrl`` updated
+        in place; ``ctrl[3]`` the condition). Returns (state, ctrl)."""
+        st = round_fn(st)
+        loop_step(st.live, st.done, done0, ctrl, flags)
+        return st, ctrl
+
     def _loop(st: SlotState, budget: int, flags: int):
         """Up to ``budget`` rounds, the device loop's condition evaluated on
         entry and after each round; returns (state, rounds run)."""
@@ -374,8 +396,7 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
         done0 = torch.empty_like(st.done)
         go = loop_step(st.live, st.done, done0, ctrl, flags | FIRST)
         while bool(go):
-            st = round_fn(st)
-            go = loop_step(st.live, st.done, done0, ctrl, flags)
+            st, _ = loop_body(st, done0, ctrl, flags)
         return st, ctrl[1].clone()
 
     def multi_fn(st: SlotState, max_rounds):
@@ -396,7 +417,7 @@ def _grid_fns(drift, tgrid, n: int, spec: GridSpec, use_kernel: bool) -> dict:
         return _loop(st, k, 0)[0]
 
     return {"round": round_fn, "admit": admit_fn, "init_state": init_state,
-            "multi": multi_fn, "roll": roll_fn}
+            "multi": multi_fn, "roll": roll_fn, "loop_body": loop_body}
 
 
 def _same(st):
@@ -585,11 +606,19 @@ class EagerStream:
         cuda = self.device.type == "cuda"
         while bool(go):
             self.readbacks += cuda
-            st = self._fns["body"](st)
+            st = stream_loop_body(self._fns, st, done, done0, ctrl)
             self.rounds_run += 1
-            go = loop_step(st.pending, done, done0, ctrl, 0)
         self.readbacks += cuda
         return self._fns["finish"](st, live)
+
+
+def stream_loop_body(fns: dict, st: StreamState, done, done0, ctrl):
+    """One pass of the stream loop's body: the round, then the loop's
+    condition on ``pending`` (``ctrl[3]``; ``done`` and ``done0`` stay
+    zero: the stream exits on its own accepts, budget N)."""
+    st = fns["body"](st)
+    loop_step(st.pending, done, done0, ctrl, 0)
+    return st
 
 
 def _build_stream(drift, tgrid, n: int, spec: StreamSpec, use_kernel: bool,
@@ -603,6 +632,33 @@ def _build_stream(drift, tgrid, n: int, spec: StreamSpec, use_kernel: bool,
         return EagerStream(fns, n, tgrid.device)
     from repro_torch.serve.graphs import GraphStream
     return GraphStream(fns, n, tgrid.device)
+
+
+def _loop_program(loop_body, flags: int):
+    """A grid's device loop as its loop program runs it: the entry
+    condition, then one pass of the WHILE body (round and condition).
+    Returns (state, ctrl)."""
+    def program(st: SlotState, done0, ctrl):
+        loop_step(st.live, st.done, done0, ctrl, flags | FIRST)
+        return loop_body(st, done0, ctrl, flags)
+    return program
+
+
+def _stream_program(fns: dict, n: int):
+    """The stream program as its loop program runs it: init, the entry
+    condition, one pass of the WHILE body, finish. Returns ((result, rc),
+    the loop state: what the next pass would read)."""
+    def program(x0, live):
+        st = fns["init"](x0, live)
+        s = st.pending.shape[0]
+        ctrl = torch.tensor([n, 0, 0, 0], dtype=torch.int32,
+                            device=x0.device)
+        done = torch.zeros(s, dtype=torch.bool, device=x0.device)
+        done0 = torch.zeros_like(done)
+        loop_step(st.pending, done, done0, ctrl, FIRST)
+        st = stream_loop_body(fns, st, done, done0, ctrl)
+        return fns["finish"](st, live), st
+    return program
 
 
 class RoundExecutor:
@@ -739,6 +795,84 @@ class RoundExecutor:
             return put(gather_slots(dst, src, mask, src_idx))
 
         return run
+
+    # -- static-analysis enumeration hook -------------------------------------
+
+    def enumerate_programs(self, grid_specs=(), stream_specs=(),
+                           stream_latent_shape=(4,), stream_batch: int = 2,
+                           migrate_pairs=()) -> list:
+        """Every program this executor can build for the given specs, as
+        :class:`ProgramRecord`s with the reference's names, each a fresh
+        body with example arguments on the executor's device.
+
+        A grid gives ``round``, ``admit`` and the two device loops:
+        ``multi`` and ``roll`` are each the loop program a CUDA graph runs
+        (the entry condition, then the WHILE body: one round and the
+        condition kernel), not the host loop the CPU drives it with. A
+        stream spec gives its program the same way (init, entry, one body
+        pass, finish); a migrate pair ``gather_slots`` between the two
+        grids' states. Records are built fresh: enumeration never builds
+        a cached grid nor counts in ``retraces``.
+        """
+        dev = self.device
+        records: list = []
+        for spec in grid_specs:
+            fns = _grid_fns(self.drift, self.tgrid, self.n, spec,
+                            self.use_kernel)
+            st = fns["init_state"]()
+            s, k = spec.num_slots, spec.num_cores
+            lane_tag = ""
+            admit_extra: tuple = ()
+            if spec.lane_profile is not None:
+                roles = "".join("D" if sp.role == "draft" else
+                                ("A" if sp.skip else "R")
+                                for sp in spec.lane_profile)
+                lane_tag = f",lanes={roles}"
+                admit_extra = (torch.ones(s, dtype=torch.bool, device=dev),
+                               torch.zeros(s, dtype=torch.float32,
+                                           device=dev))
+            dtype = torch_dtype(spec.dtype)
+            tag = (f"grid[S={s},K={k},{spec.latent_shape},"
+                   f"{str(dtype).removeprefix('torch.')}{lane_tag}]")
+            records.append(ProgramRecord(
+                f"{tag}/round", "round", fns["round"], (st,)))
+            records.append(ProgramRecord(
+                f"{tag}/admit", "admit", fns["admit"],
+                (st, torch.ones(s, dtype=torch.bool, device=dev),
+                 torch.zeros((s,) + spec.latent_shape, dtype=dtype,
+                             device=dev),
+                 torch.zeros((s, k), dtype=torch.int32, device=dev),
+                 torch.zeros(s, dtype=torch.float32, device=dev))
+                + admit_extra))
+            for kind, flags in (("multi", EXIT_ON_ACCEPT), ("roll", 0)):
+                records.append(ProgramRecord(
+                    f"{tag}/{kind}", kind,
+                    _loop_program(fns["loop_body"], flags),
+                    (st, torch.empty_like(st.done), torch.tensor(
+                        [8, 0, 0, 0], dtype=torch.int32, device=dev))))
+        for spec in stream_specs:
+            fns = _stream_fns(self.drift, self.tgrid, self.n, spec,
+                              self.use_kernel)
+            shape = ((stream_batch,) + tuple(stream_latent_shape)
+                     if spec.batched else tuple(stream_latent_shape))
+            live = torch.ones((stream_batch,) if spec.batched else (),
+                              dtype=torch.bool, device=dev)
+            records.append(ProgramRecord(
+                f"stream[K={spec.num_cores},i={list(spec.i_seq)},"
+                f"rtol={spec.rtol},batched={spec.batched}]", "stream",
+                _stream_program(fns, self.n),
+                (torch.zeros(shape, dtype=torch.float32, device=dev), live)))
+        for src, dst in migrate_pairs:
+            s_src, s_dst = src.num_slots, dst.num_slots
+            init = {sp: _grid_fns(self.drift, self.tgrid, self.n, sp,
+                                  self.use_kernel)["init_state"]()
+                    for sp in (src, dst)}
+            records.append(ProgramRecord(
+                f"migrate[{s_src}->{s_dst}]", "migrate", gather_slots,
+                (init[dst], init[src],
+                 torch.ones(s_dst, dtype=torch.bool, device=dev),
+                 torch.zeros(s_dst, dtype=torch.int32, device=dev))))
+        return records
 
     @property
     def migration_traces(self) -> int:

@@ -218,3 +218,35 @@ def test_mesh_modules_import_without_jax():
         proc = subprocess.run([sys.executable, "-c", code], env=env,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, (m, proc.stdout + proc.stderr)
+
+
+def test_analysis_imports_no_jax():
+    """``repro_torch.analysis`` (every pass, the surface, the CLI and the
+    card's case launcher) imports, checks a launch description and
+    enumerates the surface's programs in a process where importing
+    ``jax`` or ``repro`` fails, and leaves both out of ``sys.modules``."""
+    mods = ["repro_torch.analysis", "repro_torch.analysis.report",
+            "repro_torch.analysis.launch_check",
+            "repro_torch.analysis.graph_lint",
+            "repro_torch.analysis.trace_check",
+            "repro_torch.analysis.sharding_check",
+            "repro_torch.analysis.surface", "repro_torch.analysis.sanitize",
+            "repro_torch.analysis.__main__", "repro_torch.kernels.meta"]
+    assert set(mods) <= set(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from repro_torch.analysis import launch_check, surface\n"
+        "case = surface.kernel_cases()[0]\n"
+        "assert launch_check.check_launch(case.launch) == []\n"
+        "assert len(surface.enumerate_serve_programs()) == 34\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None "
+        "and k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -53,9 +53,11 @@ def test_rectify_kernels_bitwise(cuda, rows, m, p):
 
 # (rows, M, offset): the serving shape, M = 1, odd M, M % 4 == 0 but the
 # operands a view 4 bytes (offset 1) off 16-byte alignment, a long row,
-# and the 65535-row limit
+# the 65535 rows the grid's y once held, and past them (the rows folded
+# into x)
 STEP_CASES = [(32, 1024, 0), (32, 1, 0), (7, 4099, 0), (32, 1024, 1),
-              (64, 100_003, 0), (65535, 3, 0), (65535, 8, 1)]
+              (64, 100_003, 0), (65535, 3, 0), (65535, 8, 1),
+              (65537, 64, 0), (65537, 3, 1)]
 
 
 @pytest.mark.gpu
@@ -107,10 +109,12 @@ def test_rmsnorm_kernel(cuda, dtype, tol):
                                rmsnorm_ref(x, w).float(), atol=tol, rtol=0)
 
 
-# (rows, M, P) with P dividing rows: P = 1, 4 (where it divides) and rows
+# (rows, M, P) with P dividing rows: P = 1, 4 (where it divides) and rows;
+# and past the 65535 rows the grid's y once held
 ACCEPT_CASES = sorted({(rows, m, p) for rows in (1, 3, 32, 64)
                        for m in (1, 3, 1024, 1_000_003)
-                       for p in (1, 4, rows) if rows % p == 0})
+                       for p in (1, 4, rows) if rows % p == 0}
+                      | {(65537, 64, 1), (65537, 3, 65537)})
 
 
 @pytest.mark.gpu

@@ -812,9 +812,47 @@ def job_lm_serve(rank: int, world: int, io_dir: str):
     return out
 
 
+# --- job "analysis": W=4, the sharding pass of repro_torch.analysis ----------
+
+def job_analysis(rank: int, world: int, io_dir: str):
+    """``sharding_check`` over both ladders of the analysis surface on a
+    (2, 2) mesh under ``SERVE_RULES``, then two mutants of the grid's
+    state on the smallest grid: ``rtol`` left whole (``replicated``) and
+    ``rtol`` laid out on ``model`` instead of ``data`` (``entry-spec``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.analysis import sharding_check, surface
+    from repro_torch.dist.sharding import local_dtensor, whole
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import executor as ex_mod
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    ex = surface.make_executor()
+    ladders = surface.grid_ladder() + surface.lane_grid_ladder()
+    out = {"grids": len(ladders),
+           "clean": [(f.location, f.code) for f in sharding_check.run(
+               ex, ladders, mesh=mesh)]}
+    place = ex_mod.place
+    for name, lay in (("replicated", (Replicate(), Replicate())),
+                      ("entry_spec", (Replicate(), Shard(0)))):
+        def mutant(tree, ctx, axis, lay=lay):
+            st = place(tree, ctx, axis)
+            if not isinstance(st, ex_mod.SlotState) or ctx is None:
+                return st
+            return st._replace(rtol=local_dtensor(
+                whole(st.rtol).clone(), ctx.mesh, lay))
+        ex_mod.place = mutant
+        try:
+            out[name] = [(f.location, f.code) for f in sharding_check.run(
+                ex, ladders[:1], mesh=mesh)]
+        finally:
+            ex_mod.place = place
+    return out
+
+
 JOBS = {"steps": (job_steps, 4), "one": (job_one, 1),
         "elastic": (job_elastic, 2), "serve": (job_serve, 4),
-        "lm_serve": (job_lm_serve, 4)}
+        "lm_serve": (job_lm_serve, 4), "analysis": (job_analysis, 4)}
 
 
 def _rank(rank: int, job: str, world: int, io_dir: str):
