@@ -1,5 +1,12 @@
-"""Model config and registry — port of ``repro.configs.base`` (the fields
-the ported families read, with the same names and defaults)."""
+"""Model config, input-shape cells and the registry — port of
+``repro.configs.base`` (the fields the ported families read, with the same
+names and defaults). Shape cells follow the reference:
+
+  train_4k     seq_len=4096    global_batch=256   (train_step)
+  prefill_32k  seq_len=32768   global_batch=32    (prefill)
+  decode_32k   seq_len=32768   global_batch=128   (serve_step, 1 new token)
+  long_500k    seq_len=524288  global_batch=1     (serve_step; SSM/hybrid only)
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -66,6 +73,38 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+    sub_quadratic_required: bool = False
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode",
+                        sub_quadratic_required=True)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+# Families that support 500k context (sub-quadratic sequence mixing).
+SUB_QUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; reason string if skipped."""
+    if shape.sub_quadratic_required and \
+            cfg.family not in SUB_QUADRATIC_FAMILIES:
+        return False, (
+            f"{cfg.name} is full-attention; long_500k requires sub-quadratic "
+            "sequence mixing (see DESIGN.md §Arch-applicability)"
+        )
+    return True, ""
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

@@ -10,8 +10,9 @@ to feed back into the next round.
 
 Every collective of this module and of the compressed train step goes
 through :func:`all_gather`, :func:`all_to_all` or :func:`all_reduce_max`,
-which add the bytes they hand to the wire to :data:`WIRE_BYTES`, keyed by
-(op, dtype). It is the port's counterpart of
+which add the bytes they hand to the wire to :data:`WIRE_GROUPS`, keyed
+by (op, process-group name, dtype) with the group's size, so that a census
+can say which mesh axis carried them. It is the port's counterpart of
 the reference's check for ``s8[...] all-gather|all-to-all`` in the compiled
 HLO: ``wire_bytes()`` after a step says what went out, by dtype.
 
@@ -22,7 +23,6 @@ them, so that a check can say over which axis a reduction ran.
 """
 from __future__ import annotations
 
-import collections
 import warnings
 from typing import Dict, Tuple
 
@@ -32,17 +32,31 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.dist.sharding import is_dtensor
 
-# (op, dtype name) -> bytes this rank handed to the wire
-WIRE_BYTES: Dict[Tuple[str, str], int] = collections.Counter()
+# (op, process-group name, dtype name) -> [launches, bytes this rank
+# handed to the wire, group size]
+WIRE_GROUPS: Dict[Tuple[str, str, str], list] = {}
 
 
 def reset_wire_bytes() -> None:
-    WIRE_BYTES.clear()
+    WIRE_GROUPS.clear()
 
 
 def wire_bytes() -> Dict[Tuple[str, str], int]:
-    """A copy of the counter: {(op, dtype): bytes sent by this rank}."""
-    return dict(WIRE_BYTES)
+    """{(op, dtype): bytes sent by this rank}, over every group."""
+    out: Dict[Tuple[str, str], int] = {}
+    for (op, _, dt), (_, nbytes, _) in WIRE_GROUPS.items():
+        out[(op, dt)] = out.get((op, dt), 0) + nbytes
+    return out
+
+
+def group_axes(mesh) -> Dict[str, str]:
+    """{process-group name: the mesh axis it serves} (``"+"``-joined where
+    one group serves several axes of ``mesh``)."""
+    axes: Dict[str, str] = {}
+    for a in mesh.mesh_dim_names:
+        g = mesh.get_group(a).group_name
+        axes[g] = axes[g] + "+" + a if g in axes else a
+    return axes
 
 
 class CollectiveLog(TorchDispatchMode):
@@ -52,7 +66,7 @@ class CollectiveLog(TorchDispatchMode):
     ``axis`` names the mesh axis whose group carried it (``"+"``-joined
     where one group serves several axes of ``mesh``, ``"?"`` for a group
     that is not one of ``mesh``'s). The collectives this module hands to
-    ``torch.distributed`` are counted in :data:`WIRE_BYTES` instead.
+    ``torch.distributed`` are counted in :data:`WIRE_GROUPS` instead.
     PyTorch's ``CommDebugMode`` counts by op only, and so cannot say which
     axis a reduction ran over."""
 
@@ -61,10 +75,7 @@ class CollectiveLog(TorchDispatchMode):
 
         super().__init__()
         self._dtensor = DTensor
-        self.axes: Dict[str, str] = {}
-        for a in mesh.mesh_dim_names:
-            g = mesh.get_group(a).group_name
-            self.axes[g] = self.axes[g] + "+" + a if g in self.axes else a
+        self.axes = group_axes(mesh)
         self.counts: Dict[Tuple[str, str, str], list] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -97,9 +108,14 @@ class CollectiveLog(TorchDispatchMode):
                     and (axis in ax.split("+") or ax == "?")), default=0)
 
 
-def _count(op: str, t: torch.Tensor) -> None:
-    name = str(t.dtype).replace("torch.", "")
-    WIRE_BYTES[(op, name)] += t.numel() * t.element_size()
+def _count(op: str, t: torch.Tensor, group) -> None:
+    group = group if group is not None else dist.group.WORLD
+    key = (op, group.group_name, str(t.dtype).replace("torch.", ""))
+    rec = WIRE_GROUPS.get(key)
+    if rec is None:
+        rec = WIRE_GROUPS[key] = [0, 0, dist.get_world_size(group)]
+    rec[0] += 1
+    rec[1] += t.numel() * t.element_size()
 
 
 def all_gather(x: torch.Tensor, group) -> torch.Tensor:
@@ -108,7 +124,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     w = dist.get_world_size(group)
     flat = x.reshape(-1).contiguous()
     out = torch.empty((w * flat.numel(),), dtype=x.dtype, device=x.device)
-    _count("all_gather", x)
+    _count("all_gather", x, group)
     with warnings.catch_warnings():  # newer releases rename it
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, flat, group=group)
@@ -119,7 +135,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` [W, ...]: row ``r`` goes to rank ``r``; returns [W, ...] whose
     row ``r`` came from rank ``r`` (``all_to_all_single``)."""
     out = torch.empty_like(x)
-    _count("all_to_all", x)
+    _count("all_to_all", x, group)
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
 
@@ -134,7 +150,7 @@ def ring_shift(x: torch.Tensor, step: int, group) -> torch.Tensor:
     dst = dist.get_global_rank(group, (r + step) % w)
     src = dist.get_global_rank(group, (r - step) % w)
     out = torch.empty_like(x)
-    _count("permute", x)
+    _count("permute", x, group)
     reqs = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, x.contiguous(), dst, group),
         dist.P2POp(dist.irecv, out, src, group)])
@@ -145,7 +161,7 @@ def ring_shift(x: torch.Tensor, step: int, group) -> torch.Tensor:
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """In-place max of a (scalar) tensor over ``group``."""
-    _count("all_reduce_max", x)
+    _count("all_reduce_max", x, group)
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 

@@ -661,18 +661,51 @@ def lift_rows(fn):
     return call
 
 
-def place_tree(tree: dict, axes: dict, skip: Sequence[str] = ()) -> dict:
-    """A dict of tensors (the same on every rank) laid out by the ambient
-    context: each leaf a DTensor by its logical ``axes`` (the keys in
-    ``skip``, and every leaf outside a context, as they are). Each rank
-    keeps its block; nothing goes on the wire. A KV cache by
-    ``cache_axes``."""
+def split_last(x, shape):
+    """``x.reshape(shape)``, where ``shape`` splits ``x``'s last dim in two.
+    A DTensor whose last dim is split over mesh dims that the new leading
+    dim (heads) does not divide is made whole on them first: DTensor
+    cannot unflatten such a split, where XLA re-lays it out."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = x.dim() - 1
+        sizes = tuple(x.device_mesh.shape)
+        ways = math.prod(s for p, s in zip(x.placements, sizes)
+                         if isinstance(p, Shard) and p.dim == last)
+        if shape[-2] % ways:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == last
+                else p for p in x.placements])
+    return x.reshape(shape)
+
+
+def zeros_tree(specs: dict, axes: dict, device,
+               skip: Sequence[str] = ()) -> dict:
+    """Zeros of a dict of ``(shape, dtype)`` specs (a cache), under the
+    ambient context each leaf a DTensor laid out by its logical ``axes``
+    of which every rank allocates only its own block: a KV cache held
+    whole by every rank before the layout would not fit one
+    (qwen1.5-0.5b's at 32 x 32768 is 103 GB). The keys in ``skip`` (a
+    cache's ``len``) are plain tensors on the host; outside a context
+    every other leaf is a plain tensor on ``device``."""
+    import torch
+
     ctx = current_ctx()
-    if ctx is None or not hasattr(ctx.mesh, "get_coordinate"):
-        return tree
-    return {k: v if k in skip or is_dtensor(v) else local_dtensor(
-        v, ctx.mesh, ctx.placements(axes[k], tuple(v.shape)))
-        for k, v in tree.items()}
+    on_mesh = ctx is not None and hasattr(ctx.mesh, "get_coordinate")
+    out = {}
+    for k, (shape, dt) in specs.items():
+        if k in skip:
+            out[k] = torch.zeros(shape, dtype=dt)
+        elif not on_mesh:
+            out[k] = torch.zeros(shape, dtype=dt, device=device)
+        else:
+            from torch.distributed.tensor import zeros as dt_zeros
+
+            out[k] = dt_zeros(tuple(shape), dtype=dt, device_mesh=ctx.mesh,
+                              placements=ctx.placements(axes[k],
+                                                        tuple(shape)))
+    return out
 
 
 def assign(dst, index, src) -> None:

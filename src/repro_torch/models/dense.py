@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import assign, place_tree, shard_act
+from repro_torch.dist.sharding import assign, shard_act, zeros_tree
 from repro_torch.models import layers as L
 from repro_torch.utils.pspec import spec
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
@@ -157,13 +157,11 @@ def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE):
 
 def init_cache(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE,
                device="cuda"):
-    """An empty cache: k/v zeros on ``device``, ``len`` zeros on the
-    host."""
-    dev = resolve_device(device)
-    sp = cache_specs(cfg, batch, max_len, dtype)
-    return {"k": torch.zeros(*sp["k"][0], dtype=dtype, device=dev),
-            "v": torch.zeros(*sp["v"][0], dtype=dtype, device=dev),
-            "len": torch.zeros(batch, dtype=torch.int32)}
+    """An empty cache: k/v zeros on ``device`` (under a mesh context each
+    rank's block of them, ``dist.sharding.zeros_tree``), ``len`` zeros on
+    the host."""
+    return zeros_tree(cache_specs(cfg, batch, max_len, dtype),
+                      cache_axes(cfg), resolve_device(device), skip=("len",))
 
 
 def run_prefill(params, cfg: ModelConfig, e, block, max_len):
@@ -172,8 +170,7 @@ def run_prefill(params, cfg: ModelConfig, e, block, max_len):
     to S; the final norm stays plain, as in the reference."""
     b, s = e.shape[:2]
     positions = _positions(cfg, b, s, device=e.device)
-    cache = place_tree(init_cache(cfg, b, max_len, device=e.device),
-                       cache_axes(cfg), skip=("len",))
+    cache = init_cache(cfg, b, max_len, device=e.device)
     h = e
     for i, p in enumerate(_layers(params["blocks"])):
         h = block(p, h, positions, (cache["k"][i], cache["v"][i]))

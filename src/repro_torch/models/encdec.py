@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import assign, place_tree, shard_act
+from repro_torch.dist.sharding import assign, shard_act, zeros_tree
 from repro_torch.models import layers as L
 from repro_torch.models.dense import (CACHE_DTYPE, _layers,
                                       _positions, attend_or_decode,
@@ -155,12 +155,10 @@ def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE,
 
 def init_cache(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE,
                src_len=None, device="cuda"):
-    """An empty cache: zeros on ``device``, ``len`` zeros on the host."""
-    dev = resolve_device(device)
-    return {k: torch.zeros(shape, dtype=dt,
-                           device="cpu" if k == "len" else dev)
-            for k, (shape, dt) in cache_specs(cfg, batch, max_len, dtype,
-                                              src_len).items()}
+    """An empty cache: zeros on ``device`` (under a mesh context each
+    rank's block), ``len`` zeros on the host."""
+    return zeros_tree(cache_specs(cfg, batch, max_len, dtype, src_len),
+                      cache_axes(cfg), resolve_device(device), skip=("len",))
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len, src_embeds,
@@ -172,9 +170,8 @@ def prefill(params, cfg: ModelConfig, tokens, max_len, src_embeds,
     pos = _positions(cfg, b, s, device=tokens.device)
     mem_pos = _positions(cfg, b, memory.shape[1], device=tokens.device)
     h = L.embed(params["embed"], cfg, tokens)
-    cache = place_tree(init_cache(cfg, b, max_len, src_len=memory.shape[1],
-                                  device=h.device), cache_axes(cfg),
-                       skip=("len",))
+    cache = init_cache(cfg, b, max_len, src_len=memory.shape[1],
+                       device=h.device)
     for i, p in enumerate(_layers(params["dec"])):
         ck, cv = _cross_kv(p["cross_attn"], memory, h.dtype)
         h = _dec_block(cfg, p, h, memory, pos, mem_pos, attn_impl,

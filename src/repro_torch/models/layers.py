@@ -109,6 +109,22 @@ def attention_specs(cfg: ModelConfig, layers: Optional[int] = None) -> dict:
     return specs
 
 
+def _tp_only(w):
+    """A projection weight with its FSDP split (``embed`` on ``data``
+    under ``TRAIN_RULES``) gathered, the tensor-parallel split kept: the
+    gather the product needs anyway, made before it, so that a head dim
+    split over ``model`` (heads that do not divide it) stays a head-dim
+    split in the product's output. A plain tensor as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    lay = [Replicate() if isinstance(pl, Shard) and pl.dim == 0 and n > 1
+           else pl for pl, n in zip(w.placements, w.device_mesh.shape)]
+    return w if lay == list(w.placements) else \
+        w.redistribute(w.device_mesh, lay)
+
+
 def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None, cross_kv=None):
     """x: [B, S, D] -> q [B, S, H, Dh], k/v [B, Skv, KV, Dh] (RoPE applied;
     M-RoPE when ``cfg.mrope_sections``, positions then [3, B, S]). With
@@ -119,11 +135,10 @@ def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None, cross_kv=None):
     # a memory in another dtype (f32 source frames into a bf16 decoder)
     # promotes the k/v products, as jnp.einsum does
     kdt = torch.promote_types(src.dtype, x.dtype)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", src.to(kdt),
-                     p["wk"].to(x.dtype).to(kdt))
-    v = torch.einsum("bsd,dhk->bshk", src.to(kdt),
-                     p["wv"].to(x.dtype).to(kdt))
+    wq, wk, wv = (_tp_only(p[n]) for n in ("wq", "wk", "wv"))
+    q = torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src.to(kdt), wk.to(x.dtype).to(kdt))
+    v = torch.einsum("bsd,dhk->bshk", src.to(kdt), wv.to(x.dtype).to(kdt))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import assign, place_tree, shard_act
+from repro_torch.dist.sharding import (assign, shard_act, split_last,
+                                       zeros_tree)
 from repro_torch.models import layers as L
 from repro_torch.models.dense import _layers
 from repro_torch.models.mamba2 import _depthwise_causal_conv
@@ -220,8 +221,8 @@ def _mlstm_block(p, cfg, x, state=None, conv_state=None, step=False):
     cv, new_conv = _depthwise_causal_conv(u, p["conv_w"].to(x.dtype),
                                           conv_state)
     cv = F.silu(cv)
-    cvh = cv.reshape(b, -1, h, hd)
-    uh = u.reshape(b, -1, h, hd)
+    cvh = split_last(cv, (b, -1, h, hd))
+    uh = split_last(u, (b, -1, h, hd))
     q = torch.einsum("bshk,hkj->bshj", cvh, p["w_q"].to(x.dtype))
     k = torch.einsum("bshk,hkj->bshj", cvh, p["w_k"].to(x.dtype))
     v = torch.einsum("bshk,hkj->bshj", uh, p["w_v"].to(x.dtype))
@@ -344,10 +345,11 @@ def cache_specs(cfg: ModelConfig, batch, max_len=None, dtype=None):
 
 
 def _zero_states(cfg, b, device):
-    """Zeros (``s_n`` 1e-6) on ``device``; ``len`` on the host."""
-    out = {k: torch.zeros(shape, dtype=dt,
-                          device="cpu" if k == "len" else device)
-           for k, (shape, dt) in cache_specs(cfg, b).items()}
+    """Zeros (``s_n`` 1e-6) on ``device``; ``len`` on the host. Under a
+    mesh context each leaf is laid out by :func:`cache_axes`, every rank
+    holding only its block (``dist.sharding.zeros_tree``)."""
+    out = zeros_tree(cache_specs(cfg, b), cache_axes(cfg), device,
+                     skip=("len",))
     out["s_n"].fill_(1e-6)
     return out
 
@@ -422,8 +424,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len=None, attn_impl=None):
     """tokens: [B, S] -> (logits [B, S, V], state after S). The zero state
     goes in as a cache, so the conv states run from zeros."""
     e = L.embed(params["embed"], cfg, tokens)
-    zero = place_tree(_zero_states(cfg, tokens.shape[0], e.device),
-                      cache_axes(cfg), skip=("len",))
+    zero = _zero_states(cfg, tokens.shape[0], e.device)
     h, cache = _run(params, cfg, e, zero, step=False)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.unembed(params["embed"], cfg, h), cache

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import assign, place_tree, shard_act
+from repro_torch.dist.sharding import assign, shard_act, zeros_tree
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.dense import (CACHE_DTYPE, _layers,
@@ -152,12 +152,10 @@ def cache_specs(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE):
 
 def init_cache(cfg: ModelConfig, batch, max_len, dtype=CACHE_DTYPE,
                device="cuda"):
-    """An empty cache: zeros on ``device``, ``len`` zeros on the host."""
-    dev = resolve_device(device)
-    return {k: torch.zeros(shape, dtype=dt,
-                           device="cpu" if k == "len" else dev)
-            for k, (shape, dt) in cache_specs(cfg, batch, max_len,
-                                              dtype).items()}
+    """An empty cache: zeros on ``device`` (under a mesh context each
+    rank's block), ``len`` zeros on the host."""
+    return zeros_tree(cache_specs(cfg, batch, max_len, dtype),
+                      cache_axes(cfg), resolve_device(device), skip=("len",))
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len, attn_impl="auto"):
@@ -166,8 +164,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_len, attn_impl="auto"):
     ``forward_hidden``."""
     b, s = tokens.shape
     e = L.embed(params["embed"], cfg, tokens)
-    cache = place_tree(init_cache(cfg, b, max_len, device=e.device),
-                       cache_axes(cfg), skip=("len",))
+    cache = init_cache(cfg, b, max_len, device=e.device)
     h = forward_hidden(params, cfg, e, attn_impl=attn_impl, cache=cache)
     cache["len"].fill_(s)
     return L.unembed(params["embed"], cfg, h), cache

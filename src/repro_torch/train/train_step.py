@@ -24,6 +24,7 @@ without a mesh ``compress_grads`` is the local error-feedback model inside
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -76,6 +77,11 @@ def step_loss_and_grads(cfg: ModelConfig, params, batch: dict,
         return loss_and_grads(cfg, params, batch, **fw_kwargs)
 
     def split(x):
+        if is_dtensor(x) and nm % _row_ways(x):
+            # the microbatch dim cannot take the rows' mesh dims (8
+            # microbatches of a batch on 16 data ranks): the rows are made
+            # whole first, then each microbatch is laid out by shard_act
+            x = x.redistribute(x.device_mesh, _rows_whole(x))
         x = x.reshape((nm, x.shape[0] // nm) + x.shape[1:])
         return shard_act(x, (None, "batch") + (None,) * (x.dim() - 2))
 
@@ -94,6 +100,22 @@ def step_loss_and_grads(cfg: ModelConfig, params, batch: dict,
     for acc in tree_leaves(gsum):
         acc.mul_(inv)
     return lsum * inv, gsum
+
+
+def _row_ways(x) -> int:
+    """How many ranks split dim 0 of DTensor ``x``."""
+    from torch.distributed.tensor import Shard
+
+    return math.prod(s for p, s in zip(x.placements, x.device_mesh.shape)
+                     if isinstance(p, Shard) and p.dim == 0)
+
+
+def _rows_whole(x) -> list:
+    """``x``'s placements with dim 0 whole on every mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+            for p in x.placements]
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,

@@ -250,3 +250,33 @@ def test_analysis_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dryrun_imports_no_jax():
+    """``repro_torch.launch.dryrun`` (with ``specs`` and ``hlo_analysis``)
+    imports, lists its cells and gives a model's structs in a process
+    where importing ``jax`` or ``repro`` fails, and leaves both out of
+    ``sys.modules``; importing it makes no process group."""
+    mods = ["repro_torch.launch.dryrun", "repro_torch.launch.specs",
+            "repro_torch.launch.hlo_analysis"]
+    assert set(mods) <= set(_port_modules())
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import dryrun\n"
+        "assert not dist.is_initialized()\n"
+        "assert len(dryrun.ALL_CELLS) == 42\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import specs\n"
+        "assert specs.model_structs(get_config('qwen1.5-0.5b'))[0]\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None "
+        "and k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -13,6 +13,7 @@ writes its traceback to ``<io_dir>/<job>.rank<r>.err``.
 
 The tests here hold the helpers that need no ranks.
 """
+import contextlib
 import os
 import pickle
 import subprocess
@@ -850,9 +851,175 @@ def job_analysis(rank: int, world: int, io_dir: str):
     return out
 
 
+# --- job "layouts": W=4, the layouts a production mesh forces ---------------
+
+# (name, arch, mesh, microbatches, batch, config changes): a train step
+# whose layout takes a re-layout only a wide mesh needs, against one device
+LAYOUT_TRAIN = (
+    # 2 microbatches of 8 rows on 4 data ranks: the rows made whole first
+    ("rows", "qwen1.5-0.5b", (4, 1), 2, 8, {}),
+    # 3 kv heads on 2 model ranks under TRAIN_RULES: k/v split by head_dim
+    # over model, embed over data (FSDP), gathered before the product (as
+    # internlm2-1.8b's 8 kv heads on the pod's 16 model ranks)
+    ("kv_heads", "internlm2-1.8b", (2, 2), 1, 4,
+     {"num_heads": 6, "num_kv_heads": 3, "head_dim": 16}),
+)
+LAYOUT_STEPS, LAYOUT_SEQ = 2, 16
+# the functions that re-lay a DTensor out only where a mesh forces it
+LAYOUT_REDISTRIBUTORS = ("split", "_tp_only", "split_last")
+
+
+def _count_redistributes(names):
+    """{name: calls to ``DTensor.redistribute`` made from a function of
+    that name}, counted from now on in this process."""
+    from torch.distributed.tensor import DTensor
+
+    hits = dict.fromkeys(names, 0)
+    orig = DTensor.redistribute
+
+    def redistribute(self, *args, **kwargs):
+        caller = sys._getframe(1).f_code.co_name
+        if caller in hits:
+            hits[caller] += 1
+        return orig(self, *args, **kwargs)
+
+    DTensor.redistribute = redistribute
+    return hits
+
+
+def _layout_train(arch, shape, nm, batch, changes, hits):
+    """``LAYOUT_STEPS`` exact train steps on ``shape`` (TRAIN_RULES) and on
+    one device, from the same seeded parameters and batches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (TRAIN_RULES, ShardingCtx,
+                                           distribute_tree)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.utils import pspec
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config(arch, reduced=True).replace(**changes)
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    rng = np.random.default_rng(7)
+    batches = [{k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, LAYOUT_SEQ)).astype(np.int32))
+        for k in ("tokens", "labels")} for _ in range(LAYOUT_STEPS)]
+    opt = AdamWConfig(**OPT)
+    out = {}
+    for where in ("one", "mesh"):
+        params = api.init_model(cfg, 0, device="cpu")
+        step = make_train_step(cfg, opt, num_microbatches=nm, remat=True)
+        if where == "mesh":
+            params = distribute_tree(params, ShardingCtx(mesh, TRAIN_RULES),
+                                     pspec.logical_axes(api.model_specs(cfg)))
+            step = make_train_step(cfg, opt, num_microbatches=nm, mesh=mesh,
+                                   remat=True)
+            before = dict(hits)
+        state = init_state(params, opt)
+        metrics = []
+        for b in batches:
+            params, state, m = step(params, state, tree_map(
+                lambda x: x.clone(), b))
+            metrics.append(_metrics(m))
+        out[where] = {"metrics": metrics, "params": _tree_np(params)}
+    out["redistributed"] = {k: hits[k] - before[k] for k in hits}
+    return out
+
+
+def _layout_serve(hits):
+    """Reduced xLSTM (2 heads) decoding on (1, 4) under SERVE_RULES from
+    an empty cache, against one device: its 2 heads do not divide the 4
+    model ranks, so the head view of the model-split inner dim is made
+    whole first (``split_last``); the cache is ``init_cache`` under the
+    context (every rank allocates its block only). And the empty cache of
+    a dense prefill on (2, 2), leaf by leaf."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree, use_sharding)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, dense
+    from repro_torch.serve import make_decode_step
+    from repro_torch.utils import pspec
+
+    out = {}
+    cfg = get_config("xlstm-1.3b", reduced=True)
+    mod = api.get_module(cfg)
+    mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+    ctx = ShardingCtx(mesh, SERVE_RULES)
+    params = api.init_model(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (LM_B, LM_DECODE)).astype(np.int32))
+    specs = mod.cache_specs(cfg, LM_B)
+    dec = make_decode_step(cfg)
+    run = {}
+    with torch.no_grad():
+        for where in ("one", "mesh"):
+            with contextlib.ExitStack() as stack:
+                p = params
+                if where == "mesh":
+                    p = distribute_tree(params, ctx, pspec.logical_axes(
+                        api.model_specs(cfg)))
+                    stack.enter_context(use_sharding(mesh, SERVE_RULES))
+                    before = dict(hits)
+                cache = mod.init_cache(cfg, LM_B, device="cpu")
+                run[where] = {"cache": {k: repr(getattr(v, "placements",
+                                                        None))
+                                        for k, v in cache.items()},
+                              "decode": []}
+                for i in range(LM_DECODE):
+                    logits, cache = dec(p, toks[:, i:i + 1], cache)
+                    run[where]["decode"].append(_full(logits))
+    out["xlstm"] = {
+        **run, "heads": cfg.num_heads,
+        "redistributed": {k: hits[k] - before[k] for k in hits},
+        "want": {k: repr(ctx.placements(ax, tuple(specs[k][0])))
+                 for k, ax in mod.cache_axes(cfg).items() if k != "len"}}
+
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    ctx = ShardingCtx(mesh, SERVE_RULES)
+    specs = dense.cache_specs(cfg, 2, 8)
+    with use_sharding(mesh, SERVE_RULES):
+        cache = dense.init_cache(cfg, 2, 8, device="cpu")
+    axes = dense.cache_axes(cfg)
+    out["zeros"] = {k: {
+        "dtensor": hasattr(v, "to_local"),
+        "placements": repr(getattr(v, "placements", None)),
+        "want": None if k == "len" else repr(ctx.placements(
+            axes[k], tuple(specs[k][0]))),
+        "local": list((v.to_local() if hasattr(v, "to_local") else v).shape),
+        "global": list(v.shape), "dtype": str(v.dtype),
+        "spec": [list(specs[k][0]), str(specs[k][1])],
+        "device": str((v.to_local() if hasattr(v, "to_local")
+                       else v).device),
+        "nonzero": int(((v.full_tensor() if hasattr(v, "full_tensor")
+                         else v) != 0).sum())}
+        for k, v in cache.items()}
+    return out
+
+
+def job_layouts(rank: int, world: int, io_dir: str):
+    t0 = time.time()
+    hits = _count_redistributes(LAYOUT_REDISTRIBUTORS)
+    out = {}
+    for name, arch, shape, nm, batch, changes in LAYOUT_TRAIN:
+        out[name] = _layout_train(arch, shape, nm, batch, changes, hits)
+        print(f"[layouts] {name} {time.time() - t0:.1f}s", flush=True)
+    out.update(_layout_serve(hits))
+    print(f"[layouts] done {time.time() - t0:.1f}s", flush=True)
+    return out
+
+
 JOBS = {"steps": (job_steps, 4), "one": (job_one, 1),
         "elastic": (job_elastic, 2), "serve": (job_serve, 4),
-        "lm_serve": (job_lm_serve, 4), "analysis": (job_analysis, 4)}
+        "lm_serve": (job_lm_serve, 4), "analysis": (job_analysis, 4),
+        "layouts": (job_layouts, 4)}
 
 
 def _rank(rank: int, job: str, world: int, io_dir: str):

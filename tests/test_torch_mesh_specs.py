@@ -202,3 +202,25 @@ def test_tree_shardings_lay_out_every_leaf():
             got, st = got[k], st[k]
         assert got == tsh.spec_placements(ctx.pspec(ax, st.shape),
                                           ("data", "model")), path
+
+
+def test_zeros_tree_outside_a_context_is_the_plain_cache():
+    """Outside a mesh context ``zeros_tree`` (``init_cache``, the
+    prefill's empty cache) gives plain zeros of the specs on the device,
+    ``len`` on the host."""
+    from repro_torch.models import dense
+
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    specs = dense.cache_specs(cfg, 2, 8)
+    got = dense.init_cache(cfg, 2, 8, device="cpu")
+    assert sorted(got) == sorted(specs)
+    for k, (shape, dt) in specs.items():
+        assert not tsh.is_dtensor(got[k]) and got[k].device.type == "cpu"
+        assert got[k].dtype == dt and tuple(got[k].shape) == tuple(shape)
+        assert not got[k].any()
+
+
+def test_split_last_on_a_plain_tensor_is_reshape():
+    x = torch.arange(2 * 3 * 8.0).reshape(2, 3, 8)
+    assert torch.equal(tsh.split_last(x, (2, -1, 4, 2)),
+                       x.reshape(2, 3, 4, 2))
