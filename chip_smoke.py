@@ -206,8 +206,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (the stream program, its cores on ``data``) bitwise the
               same; s a round of both, and the mesh's profiled round
               (host ms, device ms, idle share).
-              ``chords-dit-xl`` (full width and depth) and ``zamba2-2.7b``
-              (full widths, 12 layers: ``ssd_chunk`` on local shards).
+              ``chords-dit-xl`` (full width and depth; also the overlap
+              loop at R = 1 and 2 on 2 slots, where two of the 4 requests
+              queue and are admitted speculatively: samples, rounds,
+              accepted cores and speculations bitwise, at least one
+              speculation, launches equal, no redistribute) and
+              ``zamba2-2.7b`` (full widths, 12 layers: the SSD layers by
+              heads, ``ssd_chunk`` on the rank's heads; also its LM
+              prefill of 4 x 512 and 4 greedy decode steps beside one
+              device: tokens and logits bitwise, launches equal; ms a
+              prefill, ms a decode step, tokens/s of both).
               Phase 18 adds ``gemma-7b``'s prefill and 8 greedy decode
               steps on the mesh beside the one-device run (tokens and
               logits bitwise, launches equal; ms a prefill, ms a decode
@@ -2762,6 +2770,7 @@ def _check_served(done, count, n, shape):
 # -- serving on a device mesh ------------------------------------------------
 
 MESH_REQUESTS = 4  # the launcher's 8 requests, cut for the smoke's time
+OVERLAP_SLOTS = 2  # the overlap legs' slots: two of the requests queue
 
 
 @contextlib.contextmanager
@@ -2777,16 +2786,17 @@ def _nccl_mesh():
         dist.destroy_process_group()
 
 
-def _serve_on(drift, tgrid, n, k, s, rtol, r_dev, ctx):
+def _serve_on(drift, tgrid, n, k, s, rtol, r_dev, ctx, overlap=False):
     """The first MESH_REQUESTS launcher requests through one engine (built
-    and run under ``ctx``): (results, stats, wall s, launch counts,
-    redistributes, engine)."""
+    and run under ``ctx``; ``overlap``: the overlap loop): (results,
+    stats, wall s, launch counts, redistributes, engine)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels import mesh as kmesh
     from repro_torch.serve import Request
     with ctx:
-        engine = _engine(drift, tgrid, n, k, s, policy="fifo", rtol=rtol)
+        engine = _engine(drift, tgrid, n, k, s, policy="fifo", rtol=rtol,
+                         overlap=overlap)
         for i in range(MESH_REQUESTS):
             engine.submit(Request(rid=i, seed=100 + i))
         kmesh.REDISTRIBUTES.clear()
@@ -2845,6 +2855,33 @@ def _static_mesh(one_drift, mesh_drift, tgrid, n, k, s, rtol, mesh, phase):
                 launches=c2, samples_bitwise=True)
 
 
+HYBRID_LM_MESH_STEPS = 4  # greedy decode steps of [hybrid-serve-mesh]'s LM
+
+
+def _hybrid_lm_mesh(cfg) -> dict:
+    """``cfg`` (zamba2 at its full widths, HYBRID_PATHS_LAYERS layers) as
+    an LM: a prefill of LM_BATCH x LM_PROMPT and HYBRID_LM_MESH_STEPS
+    greedy decode steps on the (1, 1) mesh beside one device
+    (:func:`_lm_mesh`): the SSD layers by heads on a model axis of one
+    rank, ``ssd_chunk`` on the rank's heads."""
+    import torch
+    from repro_torch.models import api
+    lcfg = cfg.replace(use_kernels=True)
+    params = api.init_model(lcfg, 0, device="cuda")
+    _lm_norms_off_one(params, torch.Generator(device="cuda").manual_seed(2))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, lcfg.vocab_size,
+                           (LM_BATCH, lm_prompt_len(lcfg, LM_PROMPT)),
+                           generator=gen, device="cuda")
+    res = _lm_mesh(lcfg, params, prompt, HYBRID_LM_MESH_STEPS, warm=True)
+    if not (res["launches"]["ssd_chunk"] and res["launches"]["rmsnorm"]):
+        raise AssertionError(f"hybrid-serve-mesh/lm: launches "
+                             f"{res['launches']}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_serve_mesh(cfg, params, phase="serve-mesh"):
     """Serving on a (1, 1) NCCL mesh under ``SERVE_RULES`` against one
     device, at R = 1 and R = 8 (module docstring, phase 22). Returns the
@@ -2868,13 +2905,22 @@ def phase_serve_mesh(cfg, params, phase="serve-mesh"):
                                   pspec.logical_axes(wrapper_specs(cfg, 16)))
         one_drift = make_drift(params, ucfg)
         mesh_drift = make_drift(dparams, ucfg)
-        for r_dev in (1, 8):
+        # the synchronous loop at R 1 and 8; [serve-mesh] also the overlap
+        # loop at R 1 and 2 (2 rounds a program, as the CPU test runs it)
+        # on OVERLAP_SLOTS slots, where requests queue and are admitted
+        # speculatively into the slots of lanes predicted to finish
+        legs = [("R1", 1, False, s), ("R8", 8, False, s)]
+        if phase == "serve-mesh":
+            legs += [("overlap_R1", 1, True, OVERLAP_SLOTS),
+                     ("overlap_R2", 2, True, OVERLAP_SLOTS)]
+        for name, r_dev, overlap, slots in legs:
+            what = f"{phase} {name}"
             d1, s1, w1, c1, _, e1 = _serve_on(
-                one_drift, tgrid, n, k, s, rtol, r_dev,
-                contextlib.nullcontext())
+                one_drift, tgrid, n, k, slots, rtol, r_dev,
+                contextlib.nullcontext(), overlap)
             d2, s2, w2, c2, red, e2 = _serve_on(
-                mesh_drift, tgrid, n, k, s, rtol, r_dev,
-                use_sharding(mesh, SERVE_RULES))
+                mesh_drift, tgrid, n, k, slots, rtol, r_dev,
+                use_sharding(mesh, SERVE_RULES), overlap)
             _check_served(d2, MESH_REQUESTS, n, (1, 64, 16))
             one, on_mesh = dict(d1), dict(d2)
             for rid, o in one.items():
@@ -2883,23 +2929,32 @@ def phase_serve_mesh(cfg, params, phase="serve-mesh"):
                         (o.rounds_used, o.accepted_core) \
                         or not torch.equal(m.sample, o.sample):
                     raise AssertionError(
-                        f"{phase} R={r_dev}: request {rid} on the mesh "
+                        f"{what}: request {rid} on the mesh "
                         f"({m.rounds_used}, core {m.accepted_core}) is not "
                         f"the one-device run's ({o.rounds_used}, core "
                         f"{o.accepted_core}) bit for bit")
             if c2 != c1 or s2["rounds_total"] != s1["rounds_total"]:
-                raise AssertionError(f"{phase} R={r_dev}: launches {c2} in "
+                raise AssertionError(f"{what}: launches {c2} in "
                                      f"{s2['rounds_total']} rounds, one "
                                      f"device {c1} in {s1['rounds_total']}")
+            spec = ("speculations", "speculation_confirms",
+                    "speculation_rollbacks")
+            if overlap and ([s2[key] for key in spec] !=
+                            [s1[key] for key in spec]
+                            or s1["speculations"] < 1):
+                raise AssertionError(
+                    f"{what}: {spec} {[s2[key] for key in spec]} on the "
+                    f"mesh, {[s1[key] for key in spec]} on one device (at "
+                    f"least 1 speculation wanted)")
             missing = [nm for nm, c in per_call.items() if c and not c2[nm]]
             if missing or red or not is_dtensor(e2.state.carry.x):
-                raise AssertionError(f"{phase} R={r_dev}: kernels not "
+                raise AssertionError(f"{what}: kernels not "
                                      f"launched {missing}, redistributes "
                                      f"{red}, state "
                                      f"{type(e2.state.carry.x).__name__}")
             rounds = s2["rounds_total"]
-            out[f"R{r_dev}"] = dict(
-                requests=MESH_REQUESTS, rounds=rounds,
+            out[name] = dict(
+                requests=MESH_REQUESTS, slots=slots, rounds=rounds,
                 programs=e2.executor.programs, host_syncs=s2["host_syncs"],
                 s_per_round_one=w1 / rounds, s_per_round_mesh=w2 / rounds,
                 launches=c2, launches_per_round={
@@ -2907,6 +2962,8 @@ def phase_serve_mesh(cfg, params, phase="serve-mesh"):
                 samples_bitwise=True, redistributes=red,
                 sharding=e2.spec.sharding is not None,
                 local_latent=list(e2.state.carry.x.to_local().shape))
+            if overlap:
+                out[name].update({key: s2[key] for key in spec})
             totals = {nm: totals[nm] + c2[nm] for nm in totals}
             del e1, e2
         out["static"] = _static_mesh(one_drift, mesh_drift, tgrid, n, k, s,
@@ -2920,6 +2977,10 @@ def phase_serve_mesh(cfg, params, phase="serve-mesh"):
             "wall_ms_per_round", "host_ms_per_round", "device_ms_per_round",
             "device_idle_share", "kernels_per_round", "programs")}
         del dparams, one_drift, mesh_drift
+    if phase == "hybrid-serve-mesh":
+        out["lm"] = _hybrid_lm_mesh(cfg)
+        totals = {nm: totals[nm] + out["lm"]["launches"][nm]
+                  for nm in totals}
     emit(phase, arch=cfg.name, layers=cfg.num_layers, card=CARD[0], **out)
     torch.cuda.empty_cache()
     return totals
@@ -3672,8 +3733,8 @@ LM_MESH_ARCH = "gemma-7b"   # served again on the (1, 1) mesh
 LM_SERVE_MESH_STEPS = 8     # greedy decode steps of the mesh comparison
 
 
-def _lm_mesh_run(cfg, params, prompt):
-    """Prefill and LM_SERVE_MESH_STEPS greedy decode steps: last-position
+def _lm_mesh_run(cfg, params, prompt, steps=LM_SERVE_MESH_STEPS):
+    """Prefill and ``steps`` greedy decode steps: last-position
     logits (read whole), tokens, ms a prefill and each decode step (CUDA
     synchronized), launches and the cache's leaf types."""
     import torch
@@ -3693,7 +3754,7 @@ def _lm_mesh_run(cfg, params, prompt):
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         outs, toks, step_ms = [last], [], []
-        for _ in range(LM_SERVE_MESH_STEPS):
+        for _ in range(steps):
             tok = torch.argmax(outs[-1], dim=-1).to(torch.int32)
             toks.append(tok)
             t0 = time.perf_counter()
@@ -3707,22 +3768,25 @@ def _lm_mesh_run(cfg, params, prompt):
                 cache={k: type(v).__name__ for k, v in cache.items()})
 
 
-def _lm_mesh(cfg, params, prompt):
-    """``cfg``'s prefill and greedy decode on a (1, 1) NCCL mesh under
-    ``SERVE_RULES`` against one device (warm: ``_lm_full`` ran it), the
-    mesh twice (the first warms DTensor's sharding propagation; the second
-    is timed and compared): tokens and logits bitwise, launches equal."""
+def _lm_mesh(cfg, params, prompt, steps=LM_SERVE_MESH_STEPS, warm=False):
+    """``cfg``'s prefill and ``steps`` greedy decode steps on a (1, 1) NCCL
+    mesh under ``SERVE_RULES`` against one device (warm: ``_lm_full`` ran
+    it, else ``warm`` runs it once first), the mesh twice (the first warms
+    DTensor's sharding propagation; the second is timed and compared):
+    tokens and logits bitwise, launches equal."""
     from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
                                            distribute_tree, use_sharding)
     from repro_torch.models import api
     from repro_torch.utils import pspec
-    one = _lm_mesh_run(cfg, params, prompt)
+    if warm:
+        _lm_mesh_run(cfg, params, prompt, steps)
+    one = _lm_mesh_run(cfg, params, prompt, steps)
     with _nccl_mesh() as mesh:
         dp = distribute_tree(params, ShardingCtx(mesh, SERVE_RULES),
                              pspec.logical_axes(api.model_specs(cfg)))
         with use_sharding(mesh, SERVE_RULES):
-            _lm_mesh_run(cfg, dp, prompt)
-            on_mesh = _lm_mesh_run(cfg, dp, prompt)
+            _lm_mesh_run(cfg, dp, prompt, steps)
+            on_mesh = _lm_mesh_run(cfg, dp, prompt, steps)
         del dp
     import torch
     if not torch.equal(on_mesh["tokens"], one["tokens"]) or not all(
@@ -3741,7 +3805,7 @@ def _lm_mesh(cfg, params, prompt):
         return dict(prefill_ms=run["prefill_ms"], decode_ms_per_step=med,
                     decode_tokens_per_s=LM_BATCH * 1e3 / med)
 
-    return dict(steps=LM_SERVE_MESH_STEPS, tokens_bitwise=True,
+    return dict(steps=steps, tokens_bitwise=True,
                 logits_bitwise=True, launches=on_mesh["launches"],
                 cache=on_mesh["cache"], one=times(one),
                 mesh=times(on_mesh))

@@ -661,6 +661,55 @@ def lift_rows(fn):
     return call
 
 
+def rows_layout(x) -> tuple:
+    """DTensor ``x``'s placements with only its dim-0 (rows) splits kept."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+
+
+def whole_for_rows(t, rows):
+    """``whole(t)`` for a computation on this rank's rows under the row
+    layout ``rows``: its gradient comes back as a partial sum over the mesh
+    dims that split the rows (each rank's rows add their share), where
+    ``full_tensor``'s default takes it as every rank's whole gradient."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return t.full_tensor(grad_placements=[
+        Partial() if isinstance(r, Shard) else Replicate() for r in rows])
+
+
+def mine(t, mesh, placements):
+    """This rank's block of ``t`` laid out as ``placements`` on ``mesh``: a
+    DTensor redistributed so where it is not, a plain tensor cut to its
+    block; None stays None."""
+    if t is None:
+        return None
+    if not is_dtensor(t):
+        return local_block(t, mesh, placements)
+    if tuple(t.placements) != tuple(placements):
+        t = t.redistribute(mesh, placements)
+    return t.to_local()
+
+
+def on_rows(fn, x, *args):
+    """``fn(local x, *local args)`` on this rank's rows of DTensor ``x``:
+    every tensor in ``args`` (trees; dim 0 rows) as this rank's rows and
+    whole in its other dims (:func:`mine`), ``fn``'s tensor outputs back as
+    DTensors laid out as the rows. What ``fn`` needs whole besides
+    (parameters) it gathers itself (:func:`whole_for_rows`)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, rows = x.device_mesh, rows_layout(x)
+    out = fn(mine(x, mesh, rows),
+             *(map_tensors(lambda t: mine(t, mesh, rows), a) for a in args))
+    return map_tensors(lambda t: DTensor.from_local(t, mesh, rows,
+                                                    run_check=False), out)
+
+
 def split_last(x, shape):
     """``x.reshape(shape)``, where ``shape`` splits ``x``'s last dim in two.
     A DTensor whose last dim is split over mesh dims that the new leading
@@ -678,6 +727,104 @@ def split_last(x, shape):
                 Replicate() if isinstance(p, Shard) and p.dim == last
                 else p for p in x.placements])
     return x.reshape(shape)
+
+
+def _stride_order(stride, dims):
+    return tuple(sorted(dims, key=lambda d: (-int(stride[d]), d)))
+
+
+def _strides_disagree(t) -> bool:
+    """Whether DTensor ``t``'s local block orders its dims (those longer
+    than 1 there) otherwise than ``t``'s global strides do. DTensor takes a
+    view's legality from the global strides and runs it on the block, so
+    such a block fails a view that the global tensor allows: an op's local
+    result takes its strides from the block's shapes (a dim of length 1,
+    an einsum's own path), the DTensor's from the global op's."""
+    loc = t.to_local()
+    dims = [d for d in range(t.dim()) if loc.shape[d] > 1]
+    return _stride_order(loc.stride(), dims) != \
+        _stride_order(t.stride(), dims)
+
+
+def _conformed(t):
+    """``t``, or where its block's strides disagree a copy contiguous in
+    both views (``contiguous()`` would return a DTensor whose global view
+    is contiguous as it is, block and all)."""
+    import torch
+
+    if is_dtensor(t) and _strides_disagree(t):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _as_forward(g, placements):
+    """Gradient ``g`` laid out as its tensor's forward ``placements`` (a
+    partial sum made whole). DTensor's backward may split the gradient
+    otherwise (a sequence split over ``model``, or in strides), and then
+    cannot follow the view that the forward took (a sequence into chunks
+    that the ranks do not divide)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if not is_dtensor(g):
+        return g
+    want = tuple(Replicate() if isinstance(p, Partial) else p
+                 for p in placements)
+    return g if tuple(g.placements) == want else \
+        g.redistribute(g.device_mesh, want)
+
+
+class _Conform:
+    """The autograd function of :func:`conform`, built at first use."""
+
+    fn = None
+
+    @classmethod
+    def get(cls):
+        if cls.fn is None:
+            import torch
+
+            class Conform(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, t):
+                    ctx.placements = t.placements
+                    out = _conformed(t)
+                    return t.view_as(t) if out is t else out
+
+                @staticmethod
+                def backward(ctx, g):
+                    return _conformed(_as_forward(g, ctx.placements))
+
+            cls.fn = Conform
+        return cls.fn
+
+
+def _on_wide_mesh(t) -> bool:
+    return is_dtensor(t) and math.prod(t.device_mesh.shape) > 1
+
+
+def conform(t):
+    """``t`` as it is, except a DTensor on a mesh of more than one rank
+    whose local block's strides disagree with its global ones: that one
+    as a copy contiguous in both views. Under autograd its gradient is
+    laid out as ``t`` and its block conformed alike. A (1, 1) mesh's block
+    is the global tensor, so its path keeps the one-device layout bit for
+    bit."""
+    if not _on_wide_mesh(t):
+        return t
+    if t.requires_grad:
+        return _Conform.get().apply(t)
+    return _conformed(t)
+
+
+def mesh_einsum(eq: str, *operands):
+    """``torch.einsum`` with its operands and result through
+    :func:`conform`: on plain tensors and on a (1, 1) mesh exactly
+    ``torch.einsum``."""
+    import torch
+
+    if not any(_on_wide_mesh(o) for o in operands):
+        return torch.einsum(eq, *operands)
+    return conform(torch.einsum(eq, *(conform(o) for o in operands)))
 
 
 def zeros_tree(specs: dict, axes: dict, device,

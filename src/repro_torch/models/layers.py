@@ -29,7 +29,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import block_range, is_dtensor, shard_act
+from repro_torch.dist.sharding import (block_range, conform, is_dtensor,
+                                       shard_act)
 from repro_torch.kernels import mesh as kmesh
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -136,9 +137,14 @@ def qkv_proj(p, cfg: ModelConfig, x, positions, theta=None, cross_kv=None):
     # promotes the k/v products, as jnp.einsum does
     kdt = torch.promote_types(src.dtype, x.dtype)
     wq, wk, wv = (_tp_only(p[n]) for n in ("wq", "wk", "wv"))
-    q = torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", src.to(kdt), wk.to(x.dtype).to(kdt))
-    v = torch.einsum("bsd,dhk->bshk", src.to(kdt), wv.to(x.dtype).to(kdt))
+    # on a mesh each product's gradient is laid out as its result before
+    # the product's backward views it (``conform``); the operands' own
+    # gradients keep DTensor's layout (partial sums reduced once)
+    q = conform(torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype)))
+    k = conform(torch.einsum("bsd,dhk->bshk", src.to(kdt),
+                             wk.to(x.dtype).to(kdt)))
+    v = conform(torch.einsum("bsd,dhk->bshk", src.to(kdt),
+                             wv.to(x.dtype).to(kdt)))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)

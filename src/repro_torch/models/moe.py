@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import is_dtensor, shard_act
+from repro_torch.dist.sharding import is_dtensor, mesh_einsum, shard_act
 from repro_torch.models import dense as _dense
 from repro_torch.models import layers as L
 from repro_torch.utils.pspec import spec
@@ -181,10 +181,10 @@ def moe_ffn(p, cfg: ModelConfig, x, num_groups: int = 1):
     wg = p["w_gate"].to(buf.dtype)
     wu = p["w_up"].to(buf.dtype)
     wd = p["w_down"].to(buf.dtype)
-    h = act(torch.einsum("gecd,edf->gecf", buf, wg)) * \
-        torch.einsum("gecd,edf->gecf", buf, wu)
+    h = act(mesh_einsum("gecd,edf->gecf", buf, wg)) * \
+        mesh_einsum("gecd,edf->gecf", buf, wu)
     h = shard_act(h, ("groups", "experts", None, "ffn"))
-    out_buf = torch.einsum("gecf,efd->gecd", h, wd)
+    out_buf = mesh_einsum("gecf,efd->gecd", h, wd)
     out_buf = shard_act(out_buf, ("groups", "experts", None, "embed_act"))
     # the combine reads every expert of its group: experts whole
     out_buf = shard_act(out_buf, ("groups", None, None, "embed_act"))

@@ -23,7 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import (assign, shard_act, split_last,
+from repro_torch.dist.sharding import (assign, conform, is_dtensor,
+                                       mesh_einsum, on_rows, rows_layout,
+                                       shard_act, split_last, whole_for_rows,
                                        zeros_tree)
 from repro_torch.models import layers as L
 from repro_torch.models.dense import _layers
@@ -146,11 +148,12 @@ def _mlstm_chunkwise(q, k, v, ig, fg, state, chunk):
     assert s % lc == 0
     nc = s // lc
     scale = _scale(hd, q.device)
-    qc = q.reshape(b, nc, lc, h, hd).to(F32)
-    kc = k.reshape(b, nc, lc, h, hd).to(F32)
-    vc = v.reshape(b, nc, lc, h, hd).to(F32)
-    igc = ig.reshape(b, nc, lc, h).to(F32)
-    fgc = fg.reshape(b, nc, lc, h).to(F32)
+    # on a mesh each chunked view's gradient is laid out as the view
+    # (``conform``): DTensor's backward may split the sequence over ranks
+    # that do not divide the chunks
+    qc, kc, vc = (conform(t.reshape(b, nc, lc, h, hd).to(F32))
+                  for t in (q, k, v))
+    igc, fgc = (conform(t.reshape(b, nc, lc, h).to(F32)) for t in (ig, fg))
     mask = torch.tril(torch.ones(lc, lc, dtype=torch.bool, device=q.device))
     neg = torch.full((), float("-inf"), dtype=F32, device=q.device)
     c_p, n_p, m_p = state
@@ -168,11 +171,13 @@ def _mlstm_chunkwise(q, k, v, ig, fg, state, chunk):
         w_intra = torch.exp(s_lm - m_comb[:, :, None, :])  # [B,Lc,Lc,H]
         w_inter = torch.exp(m_inter - m_comb)  # [B,Lc,H]
         a = torch.einsum("blhd,bmhd->blmh", qj, kj) * scale * w_intra
-        num = torch.einsum("blmh,bmhd->blhd", a, vj)
+        # on a mesh the local results of num's and den's first products
+        # came out in strides that DTensor could not view (``mesh_einsum``)
+        num = mesh_einsum("blmh,bmhd->blhd", a, vj)
         num = num + w_inter[..., None] * torch.einsum(
             "blhd,bhde->blhe", qj * scale, c_p)
-        den = a.sum(dim=2) + w_inter * torch.einsum("blhd,bhd->blh",
-                                                    qj * scale, n_p)
+        den = a.sum(dim=2) + w_inter * mesh_einsum("blhd,bhd->blh",
+                                                   qj * scale, n_p)
         hs.append(num / torch.maximum(den.abs(),
                                       torch.exp(-m_comb))[..., None])
         # state update to the end of the chunk
@@ -186,7 +191,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, state, chunk):
             + torch.einsum("bmhd,bmhe->bhde", wk, vj)
         n_p = decay[:, :, None] * n_p + wk.sum(dim=1)
         m_p = m_new
-    hseq = torch.stack(hs, dim=1).reshape(b, s, h, hd)
+    hseq = conform(torch.stack(hs, dim=1).reshape(b, s, h, hd))
     return hseq, (c_p, n_p, m_p)
 
 
@@ -295,7 +300,19 @@ def _slstm_block(p, cfg, x, state=None, conv_state=None):
     if state is None:
         z = torch.zeros((b, h, hd), dtype=F32, device=x.device)
         state = (z, z + 1e-6, z, z)
-    hs, new_state, new_conv = _slstm_scan(p, cfg, xin, state, conv_state)
+    if is_dtensor(xin):
+        # on a mesh each rank runs its rows' recurrence with the cell's
+        # parameters whole: a step of it is a few small products, and
+        # its heads (4 at full width) seldom divide the model ranks
+        rows = rows_layout(xin)
+        pw = {k: whole_for_rows(p[k], rows)
+              for k in ("conv_w", "w_gates", "b_gates", "r_gates")}
+        hs, new_state, new_conv = on_rows(
+            lambda xl, st, cs: _slstm_scan(pw, cfg, xl, st, cs), xin, state,
+            conv_state)
+    else:
+        hs, new_state, new_conv = _slstm_scan(p, cfg, xin, state,
+                                              conv_state)
     hs = L.rmsnorm(hs, p["out_norm"], cfg.norm_eps)
     x = x + hs
     # post-FFN (GeGLU, factor 4/3), on the un-normed sum as in the reference

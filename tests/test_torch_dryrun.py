@@ -17,7 +17,9 @@ counterparts of ``tests/test_dryrun_small.py`` and of the
   ``internlm2-1.8b`` train cell on (2, 2) under ``TRAIN_RULES``, prefill
   and decode cells, the CHORDS roll over an 8-way ``data`` axis, the slot
   grid on (4, 2), the ``compressed`` variant, one sharded matmul's FLOPs,
-  and the production meshes.
+  the production meshes, reduced xLSTM with 4 heads over 16 model ranks
+  (local blocks in other strides than their global views') and reduced
+  zamba2's decode cell on (2, 2) with one SSD layer's census by hand.
 
 Already covered elsewhere, not repeated: the compressed psum against the
 exact sum (``tests/test_torch_mesh_ranks.py`` job ``psum``), the rule
@@ -255,10 +257,13 @@ def _run_jobs(out):
     from repro_torch.core.chords import ChordsCarry, make_round_body
     from repro_torch.core.ode import uniform_tgrid
     from repro_torch.dist import collectives as coll
-    from repro_torch.dist.sharding import SERVE_RULES, use_sharding
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           use_sharding)
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import hlo_analysis as H
+    from repro_torch.launch import specs as S
     from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.models import mamba2
 
     D.init_fake_world(512)
     res = {"meshes": [[list(m.shape), list(m.mesh_dim_names)] for m in (
@@ -304,6 +309,36 @@ def _run_jobs(out):
         "census": H.collective_bytes(tr.counter.collectives, H.wire_census(
             tr.wire, H.group_axes(m8))),
         "out": [H.local_shape(t) for t in new]}
+
+    # DTensor viewed local blocks in other strides than their global
+    # view's: reduced xLSTM with the full width's 4 heads over 16 model
+    # ranks and chunks of 32 (the prefill_32k / train_4k fault)
+    xl = get_config("xlstm-1.3b", reduced=True).replace(num_heads=4,
+                                                        ssm_chunk=32)
+    m216 = make_mesh((2, 16), ("data", "model"), device="cpu")
+    res["xlstm_views"] = [D.build_lm_cell(
+        xl, ShapeConfig(kind[0], 64, 4, kind), m216)["kind"]
+        for kind in ("prefill", "train")]
+
+    # reduced zamba2's decode cell on (2, 2), and one SSD layer's decode
+    # step alone on the cell's own state (its 8 heads, 4 a model rank)
+    z = get_config("zamba2-2.7b", reduced=True)
+    zs = ShapeConfig("d", 64, 4, "decode")
+    res["zamba2_decode"] = D.build_lm_cell(z, zs, m22)["per_device"][
+        "collective_bytes"]
+    tr = D.CellTrace(m22)
+    ctx = ShardingCtx(m22, SERVE_RULES)
+    with tr.fake_mode:
+        st = D.lm_state(z, zs, ctx, "cpu")
+        x = D.fake_tree({"x": S.TensorStruct((4, 1, z.d_model),
+                                             torch.float32)},
+                        {"x": ("batch", "seq", "embed_act")}, ctx,
+                        "cpu")["x"]
+    ssd = {k: v[0] for k, v in st["params"]["mamba"]["ssd"].items()}
+    with use_sharding(m22, SERVE_RULES), tr.run((ssd, x)):
+        mamba2.ssd_decode_step(ssd, z, x, st["cache"]["conv"][0],
+                               st["cache"]["ssm"][0])
+    res["ssd_layer"] = H.collective_bytes(tr.counter.collectives)
 
     # one sharded matmul: [64, 128] rows on data @ [128, 256] cols on model
     tr = D.CellTrace(m22)
@@ -498,6 +533,34 @@ def test_compressed_variant_puts_int8_on_the_wire(jobs):
     # loss; 4 bytes, twice), never a gradient
     assert all(e["bytes"] <= 8 * e["launches"]
                for e in _ops(cen, "all-reduce", "data", "float32"))
+
+
+def test_xlstm_cells_with_views_of_strided_blocks_build(jobs):
+    """Before ``sharding.conform``: ``Cannot view a tensor with shape
+    [2, 4, 2, 32, 1] ...`` in the mLSTM's ``num`` product (prefill and
+    train); without its gradients laid out as their forward tensors, the
+    train step's backward: ``Cannot unflatten unevenly sharded tensor``
+    (a sequence split over 16 ranks viewed as 2 chunks)."""
+    assert jobs["xlstm_views"] == ["prefill", "train"]
+
+
+def test_zamba2_decode_ssd_layer_bytes_are_the_hand_count(jobs):
+    """One SSD layer's decode step by heads on (2, 2), reduced zamba2 in
+    f32, a rank's 2 rows of one token and 4 of the 8 heads: the
+    projection [2, 1, 296] and the conv output [2, 1, 160] gathered over
+    ``model``, the sum of squares [2, 1, 1] and the output [2, 1, 64]
+    all-reduced over it (each counted twice); nothing over ``data``, no
+    parameter and no state gathered."""
+    cen = jobs["ssd_layer"]
+    f32 = 4
+    assert {(e["op"], e["axis"], e["dtype"], e["launches"], e["bytes"])
+            for e in cen["by_axis"]} == {
+        ("all-gather", "model", "float32", 2, (296 + 160) * 2 * f32),
+        ("all-reduce", "model", "float32", 2, 2 * (1 + 64) * 2 * f32)}
+    # the whole cell (4 such layers, the shared block, the unembedding)
+    whole = jobs["zamba2_decode"]
+    assert whole["total"] >= 4 * cen["total"]
+    assert not [e for e in whole["by_axis"] if e["axis"] == "data"]
 
 
 def test_sharded_matmul_flops_are_the_hand_count(jobs):

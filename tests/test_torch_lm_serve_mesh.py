@@ -1,6 +1,12 @@
 """LM serving on a device mesh: prefill and greedy decode of the port on
 four gloo ranks of the CPU against the JAX package on four fake CPU
 devices, both on a ``(data 2, model 2)`` mesh under ``SERVE_RULES``.
+``zamba2-2.7b`` runs twice more: on ``(data 1, model 4)``
+(``zamba2-2.7b@1x4``: its 8 SSD heads 2 a rank, the SSD layers by heads
+in the prefill and every decode step), and on (2, 2) with a prompt of 64
+tokens (``zamba2-2.7b@s64``: 64 tokens a rank, above ``mamba2.by_heads``'s
+crossover, so the prefill's SSD layers gather their parameters and the
+decode steps run by heads).
 
 One module fixture runs both sides once, at the same time, in
 subprocesses: ``test_torch_mesh_ranks.py``'s job ``lm_serve`` (the port on
@@ -10,7 +16,8 @@ the mesh and on one device) and :func:`_jax_side` (the reference's
 reduced ``qwen1.5-0.5b`` (dense), ``olmoe-1b-7b`` (MoE), ``zamba2-2.7b``
 (the hybrid: SSD layers and a shared attention block), ``xlstm-1.3b``
 (recurrent state) and ``seamless-m4t-medium`` (enc-dec, with 8 source
-frames), norm weights drawn off 1, and one prompt (B 2 x S 16) each.
+frames), norm weights drawn off 1, and one prompt (B 2 x S 16, or 64) a
+run.
 
 - Greedy tokens (6 generated; ``greedy_generate``, enc-dec's by the decode
   loop): the mesh's equal the reference's and the one-device port's.
@@ -30,9 +37,12 @@ import pytest
 
 from repro.configs import get_config as j_get_config
 from repro.models import api as japi
-from test_torch_mesh_ranks import (LM_B, LM_DECODE, LM_MAX, LM_S0, LM_SRC,
-                                   LM_SERVE_ARCHS, start_jax, start_job,
-                                   wait_all)
+from test_torch_mesh_ranks import (LM_B, LM_DECODE, LM_SRC, LM_SERVE_ARCHS,
+                                   LM_SERVE_RUNS, lm_max_len, start_jax,
+                                   start_job, wait_all)
+
+KEYS = [key for key, _, _, _ in LM_SERVE_RUNS]
+PROMPT = {key: s0 for key, _, _, s0 in LM_SERVE_RUNS}
 
 LOGIT_TOL = 1e-3
 
@@ -57,7 +67,7 @@ def _np_params(arch):
 
 
 def _jax_side(io_dir):
-    """The reference's steps on a (2, 2) mesh (run in a subprocess)."""
+    """The reference's steps on each run's mesh (in a subprocess)."""
     from repro.dist.sharding import SERVE_RULES, tree_shardings, use_sharding
     from repro.launch.mesh import make_mesh
     from repro.serve import steps
@@ -65,20 +75,20 @@ def _jax_side(io_dir):
 
     with open(os.path.join(io_dir, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
-    mesh = make_mesh((2, 2), ("data", "model"))
     out = {}
-    for arch in LM_SERVE_ARCHS:
+    for key, arch, shape, s0 in LM_SERVE_RUNS:
+        mesh = make_mesh(shape, ("data", "model"))
         cfg = j_get_config(arch, reduced=True)
         params = jax.tree_util.tree_map(jnp.asarray, inp["params"][arch])
         params = jax.device_put(params, tree_shardings(
             pspec.logical_axes(japi.model_specs(cfg)), mesh, SERVE_RULES,
             params))
-        prompt = jnp.asarray(inp["prompt"][arch])
+        prompt = jnp.asarray(inp["prompt"][key])
         src = inp["src"].get(arch)
         extra = () if src is None else (jnp.asarray(src),)
         with use_sharding(mesh, SERVE_RULES):
-            logits, cache = steps.make_prefill(cfg, LM_MAX)(params, prompt,
-                                                            *extra)
+            logits, cache = steps.make_prefill(cfg, lm_max_len(s0))(
+                params, prompt, *extra)
             dec = jax.jit(steps.make_decode_step(cfg))
             run = {"prefill": np.asarray(logits), "decode": []}
             toks = [jnp.argmax(logits[:, -1:], -1).astype(jnp.int32)]
@@ -88,7 +98,7 @@ def _jax_side(io_dir):
                 toks.append(jnp.argmax(logits[:, -1:], -1).astype(jnp.int32))
             run["tokens"] = np.concatenate(
                 [np.asarray(prompt)] + [np.asarray(t) for t in toks], 1)
-        out[arch] = run
+        out[key] = run
     with open(os.path.join(io_dir, "jax.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -98,9 +108,10 @@ def runs(tmp_path_factory):
     io_dir = str(tmp_path_factory.mktemp("lm_serve_mesh"))
     rng = np.random.default_rng(1)
     inp = {"params": {a: _np_params(a) for a in LM_SERVE_ARCHS},
-           "prompt": {a: rng.integers(
+           "prompt": {key: rng.integers(
                0, j_get_config(a, reduced=True).vocab_size,
-               (LM_B, LM_S0)).astype(np.int32) for a in LM_SERVE_ARCHS},
+               (LM_B, s0)).astype(np.int32)
+               for key, a, _, s0 in LM_SERVE_RUNS},
            "src": {a: rng.standard_normal(
                (LM_B, LM_SRC, j_get_config(a, reduced=True).d_model)
            ).astype(np.float32) for a in LM_SERVE_ARCHS
@@ -118,16 +129,16 @@ def runs(tmp_path_factory):
     return port, ref
 
 
-@pytest.mark.parametrize("arch", LM_SERVE_ARCHS)
+@pytest.mark.parametrize("arch", KEYS)
 def test_greedy_tokens_on_mesh(runs, arch):
     port, ref = runs
     mesh, one = port[arch]["mesh"], port[arch]["one"]
-    assert mesh["tokens"].shape == (LM_B, LM_S0 + LM_DECODE + 1)
+    assert mesh["tokens"].shape == (LM_B, PROMPT[arch] + LM_DECODE + 1)
     np.testing.assert_array_equal(mesh["tokens"], ref[arch]["tokens"])
     np.testing.assert_array_equal(mesh["tokens"], one["tokens"])
 
 
-@pytest.mark.parametrize("arch", LM_SERVE_ARCHS)
+@pytest.mark.parametrize("arch", KEYS)
 def test_logits_on_mesh(runs, arch):
     port, ref = runs
     mesh = port[arch]["mesh"]
@@ -139,7 +150,7 @@ def test_logits_on_mesh(runs, arch):
         np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch", LM_SERVE_ARCHS)
+@pytest.mark.parametrize("arch", KEYS)
 def test_cache_laid_out_by_cache_axes(runs, arch):
     port, _ = runs
     got, want = port[arch]["mesh"]["cache"], port[arch]["want"]

@@ -28,6 +28,25 @@ function that made it, so that each test can show that its re-layout ran:
   ``SERVE_RULES`` on (2, 2): each leaf a DTensor holding only its block,
   zeros, laid out as ``cache_axes`` says; ``len`` a plain host tensor.
 
+- ``experts``, ``encdec``, ``xlstm_heads``: two exact train steps of
+  reduced ``olmoe-1b-7b`` with 2 experts on (2, 2) (one expert a rank),
+  ``seamless-m4t-medium`` on (2, 2) and ``xlstm-1.3b`` (2 heads) on (1, 4),
+  the limits above. Their local blocks came out of the expert products,
+  the q/k/v products' gradients and the mLSTM products in other strides
+  than their global views', which DTensor then failed to view
+  (``sharding.conform`` re-lays such a block on a mesh of more than one
+  rank); xLSTM's sLSTM cell runs on each rank's rows.
+- ``ssd_rows``: two exact train steps of reduced ``zamba2-2.7b`` on (2, 2):
+  its SSD layers gather their FSDP-split parameters and run on each
+  rank's rows, the rows split over ``data``; each gathered parameter's
+  gradient comes back summed over the row splits
+  (``sharding.whole_for_rows``; taken as each rank's whole gradient it
+  was about half one device's). The limits above.
+- ``xlstm_prefill``: reduced xLSTM's prefill and greedy decode on (2, 2)
+  (one head a model rank) and on (1, 4) (two heads over four ranks, where
+  the sLSTM's gate product could not be laid out), logits within 1e-5 of
+  one device's, tokens equal.
+
 A prefill and decode under a context on (2, 2), every family against the
 reference, is ``test_torch_lm_serve_mesh.py``'s.
 """
@@ -55,11 +74,9 @@ def _rel_close(out, ref, rel, what=""):
     assert gap <= rel * max(np.linalg.norm(ref.ravel()), 1e-30), (what, gap)
 
 
-@pytest.mark.parametrize("case,relayout", [("rows", "split"),
-                                           ("kv_heads", "_tp_only")])
-def test_mesh_train_step_matches_one_device(layouts, case, relayout):
-    r = layouts[case]
-    assert r["redistributed"][relayout] > 0, r["redistributed"]
+def _steps_close(r):
+    """A case's mesh steps against one device's: loss 1e-5 relative,
+    ``grad_norm`` 1e-6, each parameter 1e-5 relative L2."""
     for tm, om in zip(r["mesh"]["metrics"], r["one"]["metrics"],
                       strict=True):
         _rel_close(tm["loss"], om["loss"], 1e-5, "loss")
@@ -67,6 +84,42 @@ def test_mesh_train_step_matches_one_device(layouts, case, relayout):
     for i, (a, b) in enumerate(zip(r["mesh"]["params"], r["one"]["params"],
                                    strict=True)):
         _rel_close(a, b, 1e-5, ("params", i))
+
+
+@pytest.mark.parametrize("case,relayout", [("rows", "split"),
+                                           ("kv_heads", "_tp_only")])
+def test_mesh_train_step_matches_one_device(layouts, case, relayout):
+    r = layouts[case]
+    assert r["redistributed"][relayout] > 0, r["redistributed"]
+    _steps_close(r)
+
+
+@pytest.mark.parametrize("case", ["experts", "encdec", "xlstm_heads"])
+def test_conformed_train_step_matches_one_device(layouts, case):
+    """Steps whose local blocks DTensor took in other strides than their
+    global view's (the expert products with one expert a rank, the enc-dec
+    q/k/v gradients, xLSTM's heads over more model ranks than heads): the
+    same limits as the re-laid steps above."""
+    _steps_close(layouts[case])
+
+
+def test_gathered_ssd_train_step_matches_one_device(layouts):
+    """zamba2's SSD layers on each rank's rows with their parameters
+    gathered, the rows split over ``data``: the gathered parameters'
+    gradients summed over the row splits, as one device's."""
+    _steps_close(layouts["ssd_rows"])
+
+
+@pytest.mark.parametrize("shape", ["2x2", "1x4"])
+def test_xlstm_prefill_on_mesh_matches_one_device(layouts, shape):
+    """xLSTM's prefill and greedy decode: one head a model rank (2, 2);
+    two heads over four model ranks (1, 4)."""
+    r = layouts["xlstm_prefill"][shape]
+    np.testing.assert_allclose(r["mesh"]["prefill"], r["one"]["prefill"],
+                               rtol=0, atol=1e-5)
+    for a, b in zip(r["mesh"]["decode"], r["one"]["decode"], strict=True):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(r["mesh"]["tokens"], r["one"]["tokens"])
 
 
 def test_rows_are_gathered_only_where_microbatches_need_it(layouts):

@@ -108,7 +108,10 @@ def _full(t):
     from torch.distributed.tensor import DTensor
 
     t = t.full_tensor() if isinstance(t, DTensor) else t
-    return t.detach().cpu().numpy().copy()  # a replicated block aliases
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has none; f32 holds it exactly
+        t = t.float()
+    return t.numpy().copy()  # a replicated block aliases
 
 
 def _tree_np(tree):
@@ -749,7 +752,19 @@ def job_serve(rank: int, world: int, io_dir: str):
 LM_SERVE_ARCHS = ("qwen1.5-0.5b", "olmoe-1b-7b", "zamba2-2.7b", "xlstm-1.3b",
                   "seamless-m4t-medium")
 LM_B, LM_S0, LM_MAX, LM_DECODE = 2, 16, 32, 6  # S0: whole SSD chunks
+# (key, arch, mesh, prompt length): every family on (2, 2), and zamba2 also
+# on (1, 4), where its 8 SSD heads are 2 a rank, and on (2, 2) with a
+# prompt of 64 tokens a rank, above ``mamba2.by_heads``'s crossover (47.9
+# at the reduced widths), so that its prefill gathers the SSD parameters
+LM_SERVE_RUNS = tuple((a, a, (2, 2), LM_S0) for a in LM_SERVE_ARCHS) + (
+    ("zamba2-2.7b@1x4", "zamba2-2.7b", (1, 4), LM_S0),
+    ("zamba2-2.7b@s64", "zamba2-2.7b", (2, 2), 64))
 LM_SRC = 8  # enc-dec source frames
+
+
+def lm_max_len(prompt_len: int) -> int:
+    """The cache length of a prompt: ``LM_MAX`` for ``LM_S0`` tokens."""
+    return prompt_len + LM_MAX - LM_S0
 
 
 def _lm_run(cfg, params, prompt, src=None):
@@ -761,7 +776,8 @@ def _lm_run(cfg, params, prompt, src=None):
         make_prefill
 
     extra = () if src is None else (src,)
-    logits, cache = make_prefill(cfg, LM_MAX)(params, prompt, *extra)
+    max_len = lm_max_len(prompt.shape[1])
+    logits, cache = make_prefill(cfg, max_len)(params, prompt, *extra)
     out = {"prefill": _full(logits), "decode": []}
     out["cache"] = {k: repr(getattr(v, "placements", None))
                     for k, v in cache.items()}
@@ -775,7 +791,7 @@ def _lm_run(cfg, params, prompt, src=None):
             torch.int32))
     loop = torch.cat([prompt.to(torch.int32)] + toks, dim=1)
     out["tokens"] = loop.numpy() if src is not None else _full(
-        greedy_generate(cfg, params, prompt, LM_DECODE + 1, LM_MAX))
+        greedy_generate(cfg, params, prompt, LM_DECODE + 1, max_len))
     return out
 
 
@@ -790,14 +806,16 @@ def job_lm_serve(rank: int, world: int, io_dir: str):
     with open(os.path.join(io_dir, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
     t0 = time.time()
-    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
-    ctx = ShardingCtx(mesh, SERVE_RULES)
+    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu")
+              for shape in {shape for _, _, shape, _ in LM_SERVE_RUNS}}
     out = {}
     with torch.no_grad():
-        for arch in LM_SERVE_ARCHS:
+        for key, arch, shape, _ in LM_SERVE_RUNS:
+            mesh = meshes[shape]
+            ctx = ShardingCtx(mesh, SERVE_RULES)
             cfg = get_config(arch, reduced=True)
             params = _params(cfg, inp["params"][arch])
-            prompt = torch.from_numpy(inp["prompt"][arch])
+            prompt = torch.from_numpy(inp["prompt"][key])
             src = inp["src"].get(arch)
             src = None if src is None else torch.from_numpy(src)
             one = _lm_run(cfg, params, prompt, src)
@@ -808,8 +826,8 @@ def job_lm_serve(rank: int, world: int, io_dir: str):
                 axes = api.get_module(cfg).cache_axes(cfg)
                 want = {k: repr(ctx.placements(ax)) for k, ax in axes.items()
                         if k != "len"}
-            out[arch] = {"one": one, "mesh": on_mesh, "want": want}
-            print(f"[lm_serve] {arch} {time.time() - t0:.1f}s", flush=True)
+            out[key] = {"one": one, "mesh": on_mesh, "want": want}
+            print(f"[lm_serve] {key} {time.time() - t0:.1f}s", flush=True)
     return out
 
 
@@ -863,6 +881,19 @@ LAYOUT_TRAIN = (
     # internlm2-1.8b's 8 kv heads on the pod's 16 model ranks)
     ("kv_heads", "internlm2-1.8b", (2, 2), 1, 4,
      {"num_heads": 6, "num_kv_heads": 3, "head_dim": 16}),
+    # the layouts whose local blocks DTensor viewed in other strides than
+    # their global view's (``sharding.conform``): one expert a model rank
+    # (the expert products), the enc-dec step's backward (the q/k/v
+    # products' gradients), and xLSTM's 2 heads over 4 model ranks (the
+    # mLSTM products; the sLSTM cell on each rank's rows)
+    ("experts", "olmoe-1b-7b", (2, 2), 1, 4, {"num_experts": 2}),
+    ("encdec", "seamless-m4t-medium", (2, 2), 1, 4, {}),
+    ("xlstm_heads", "xlstm-1.3b", (1, 4), 1, 4, {}),
+    # zamba2's SSD layers with their parameters gathered (FSDP-split under
+    # TRAIN_RULES) on each rank's rows, the rows split over data: each
+    # gathered parameter's gradient a sum over the row splits
+    # (``sharding.whole_for_rows``)
+    ("ssd_rows", "zamba2-2.7b", (2, 2), 1, 4, {}),
 )
 LAYOUT_STEPS, LAYOUT_SEQ = 2, 16
 # the functions that re-lay a DTensor out only where a mesh forces it
@@ -908,6 +939,10 @@ def _layout_train(arch, shape, nm, batch, changes, hits):
     batches = [{k: torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, LAYOUT_SEQ)).astype(np.int32))
         for k in ("tokens", "labels")} for _ in range(LAYOUT_STEPS)]
+    if api.is_encdec(cfg):
+        for b in batches:
+            b["src_embeds"] = torch.from_numpy(rng.standard_normal(
+                (batch, LM_SRC, cfg.d_model)).astype(np.float32))
     opt = AdamWConfig(**OPT)
     out = {}
     for where in ("one", "mesh"):
@@ -981,6 +1016,21 @@ def _layout_serve(hits):
         "want": {k: repr(ctx.placements(ax, tuple(specs[k][0])))
                  for k, ax in mod.cache_axes(cfg).items() if k != "len"}}
 
+    # xLSTM's prefill (whole chunks) and a decode step: on (2, 2) one head a
+    # model rank, on (1, 4) two heads over four
+    prompt = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (LM_B, LM_S0)).astype(np.int32))
+    out["xlstm_prefill"] = {}
+    with torch.no_grad():
+        one = _lm_run(cfg, params, prompt)
+        for shape in ((2, 2), (1, 4)):
+            m = make_mesh(shape, ("data", "model"), device="cpu")
+            p = distribute_tree(params, ShardingCtx(m, SERVE_RULES),
+                                pspec.logical_axes(api.model_specs(cfg)))
+            with use_sharding(m, SERVE_RULES):
+                out["xlstm_prefill"]["x".join(map(str, shape))] = {
+                    "one": one, "mesh": _lm_run(cfg, p, prompt)}
+
     cfg = get_config("qwen1.5-0.5b", reduced=True)
     mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
     ctx = ShardingCtx(mesh, SERVE_RULES)
@@ -1016,10 +1066,158 @@ def job_layouts(rank: int, world: int, io_dir: str):
     return out
 
 
+# --- jobs "ssd_heads" (W=4) and "ssd_one" (W=1): zamba2's SSD layer ------
+
+SSD_FEW, SSD_MANY = (2, 16), (4, 16)  # [B, S]: 32 and 64 tokens a rank
+
+
+def _ssd_layer(mesh):
+    """Reduced zamba2's first SSD layer (seeded port weights, norm weight
+    off 1), whole and laid out on ``mesh`` under ``SERVE_RULES``."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree)
+    from repro_torch.models import api, mamba2
+    from repro_torch.utils import pspec
+
+    cfg = get_config("zamba2-2.7b", reduced=True)
+    ssd = api.init_model(cfg, 0, device="cpu")["mamba"]["ssd"]
+    layer = {k: ssd[k][0].detach().clone() for k in ssd.keys()}
+    layer["gate_norm"] = 1.0 + 0.1 * torch.randn(
+        layer["gate_norm"].shape, generator=torch.Generator().manual_seed(3))
+    dlayer = distribute_tree(layer, ShardingCtx(mesh, SERVE_RULES),
+                             pspec.logical_axes(mamba2.ssd_specs(cfg)))
+    return cfg, layer, dlayer
+
+
+def _shape_log(mesh):
+    """A ``collectives.CollectiveLog`` that also keeps, in order, each
+    collective's (op, axis, input shapes) in ``log.shapes``."""
+    from repro_torch.dist.collectives import CollectiveLog
+
+    class ShapeLog(CollectiveLog):
+        def __init__(self):
+            super().__init__(mesh)
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            name = func._overloadpacket.__name__.rstrip("_")
+            if out is not NotImplemented and func.namespace in (
+                    "_c10d_functional", "c10d_functional") \
+                    and name != "wait_tensor":
+                group = args[-1] if isinstance(args[-1], str) else \
+                    (kwargs or {}).get("group_name")
+                ts = args[0] if isinstance(args[0], (list, tuple)) \
+                    else [args[0]]
+                self.shapes.append((name, self.axes.get(group, "?"),
+                                    tuple(tuple(t.shape) for t in ts)))
+            return out
+
+    return ShapeLog()
+
+
+def _ssd_calls(cfg, layer, x, tok, log_mesh=None):
+    """The layer's forward over ``x`` from zero states, then a decode step
+    of ``tok`` from its states: outputs and states (whole), and with
+    ``log_mesh`` the collectives of each call (:func:`_shape_log`)."""
+    from repro_torch.models import mamba2
+
+    out = {}
+    for name, fn in (("forward", lambda: mamba2.ssd_forward(layer, cfg, x)),
+                     ("decode", lambda: mamba2.ssd_decode_step(
+                         layer, cfg, tok, *out["forward"][1]))):
+        with (_shape_log(log_mesh) if log_mesh is not None
+              else contextlib.nullcontext()) as log:
+            y, st = fn()
+        out[name] = (y, st, None if log is None else log)
+    res = {}
+    for name, (y, st, log) in out.items():
+        res[name] = {"y": _full(y), "conv": _full(st[0]), "ssm": _full(st[1]),
+                     "layout": [repr(getattr(t, "placements", None))
+                                for t in st]}
+        if log is not None:
+            res[name]["shapes"] = list(log.shapes)
+    return res
+
+
+def job_ssd_heads(rank: int, world: int, io_dir: str):
+    """The SSD layer on (1, 4) under ``SERVE_RULES`` at 32 and at 64
+    tokens a rank (either side of the crossover of ``mamba2.by_heads``),
+    beside one device; the shapes of the layer's local parameter blocks
+    and SSM state block."""
+    from repro_torch.dist.sharding import (SERVE_RULES, local_dtensor,
+                                           ShardingCtx, use_sharding)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mamba2
+
+    mesh = make_mesh((1, 4), ("data", "model"), device="cpu")
+    ctx = ShardingCtx(mesh, SERVE_RULES)
+    cfg, layer, dlayer = _ssd_layer(mesh)
+    gen = torch.Generator().manual_seed(9)
+    out = {"params": {k: tuple(v.to_local().shape)
+                      for k, v in dlayer.items()},
+           "ranks": 4, "d": cfg.d_model}
+    with torch.no_grad():
+        for name, (b, s) in (("few", SSD_FEW), ("many", SSD_MANY)):
+            x = torch.randn(b, s, cfg.d_model, generator=gen)
+            tok = torch.randn(b, 1, cfg.d_model, generator=gen)
+            one = _ssd_calls(cfg, layer, x, tok)
+            lay = ctx.placements(("batch", "seq", "embed_act"), (b, s, 1))
+            with use_sharding(mesh, SERVE_RULES):
+                on_mesh = _ssd_calls(cfg, dlayer, local_dtensor(x, mesh, lay),
+                                     local_dtensor(tok, mesh, lay), mesh)
+            out[name] = {"one": one, "mesh": on_mesh, "tokens": b * s,
+                         "by_heads": mamba2.by_heads(cfg, b * s, 4)}
+    return out
+
+
+def job_ssd_one(rank: int, world: int, io_dir: str):
+    """The SSD layer and reduced zamba2's prefill and greedy decode on a
+    (1, 1) mesh against one device, in f32 and bf16 (by heads: a model
+    axis of one rank)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree, local_dtensor,
+                                           use_sharding)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.utils import pspec
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    ctx = ShardingCtx(mesh, SERVE_RULES)
+    cfg, layer, dlayer = _ssd_layer(mesh)
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn(*SSD_MANY, cfg.d_model, generator=gen)
+    tok = torch.randn(SSD_MANY[0], 1, cfg.d_model, generator=gen)
+    lay = ctx.placements(("batch", "seq", "embed_act"), (1, 1, 1))
+    out = {}
+    with torch.no_grad():
+        out["layer"] = {"one": _ssd_calls(cfg, layer, x, tok)}
+        with use_sharding(mesh, SERVE_RULES):
+            out["layer"]["mesh"] = _ssd_calls(
+                cfg, dlayer, local_dtensor(x, mesh, lay),
+                local_dtensor(tok, mesh, lay))
+        prompt = torch.randint(0, 256, (LM_B, LM_S0),
+                               generator=torch.Generator().manual_seed(11))
+        for dt in ("float32", "bfloat16"):
+            lcfg = get_config("zamba2-2.7b", reduced=True).replace(
+                compute_dtype=dt, param_dtype=dt)
+            params = api.init_model(lcfg, 0, device="cpu")
+            dp = distribute_tree(params, ctx, pspec.logical_axes(
+                api.model_specs(lcfg)))
+            run = {"one": _lm_run(lcfg, params, prompt)}
+            with use_sharding(mesh, SERVE_RULES):
+                run["mesh"] = _lm_run(lcfg, dp, prompt)
+            out[dt] = run
+    return out
+
+
 JOBS = {"steps": (job_steps, 4), "one": (job_one, 1),
         "elastic": (job_elastic, 2), "serve": (job_serve, 4),
         "lm_serve": (job_lm_serve, 4), "analysis": (job_analysis, 4),
-        "layouts": (job_layouts, 4)}
+        "layouts": (job_layouts, 4), "ssd_heads": (job_ssd_heads, 4),
+        "ssd_one": (job_ssd_one, 1)}
 
 
 def _rank(rank: int, job: str, world: int, io_dir: str):
