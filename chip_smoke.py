@@ -165,9 +165,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               resumed to 6 against 6 on the card, bitwise. The kernels
               phase holds and times rmsnorm at [2048, 2048] and flash at
               [4, 512, 16/8, 128] (the eval step's shapes). Phase 18 also
-              splits qwen2-vl's gap against plain by route
-              (``lm-generate/kernel-split``: both kernels, rmsnorm only,
-              flash only; prefill and 16 teacher-forced decode steps);
+              splits qwen2-vl's and zamba2's gaps against plain by route
+              (``lm-generate/kernel-split``: every kernel, then each alone:
+              rmsnorm, flash and, for zamba2, ``ssd_chunk``; prefill and
+              16 teacher-forced decode steps);
 20. hybrid-elastic-serve, hybrid-lane-serve — phases 12 and 13 on
               ``zamba2-2.7b``, its full widths cut to 12 of 54 layers
               (``HYBRID_PATHS_LAYERS``), with the DiT's checks;
@@ -634,8 +635,9 @@ def check_rmsnorm(gen, records):
     """rmsnorm against its plain version (1e-5 f32, 5e-2 bf16) through both
     variants (rows in registers; two sweeps for 5120 f32), 16-byte vectors
     and one element at a time (an odd width, an unaligned view); then, at
-    each served width, the wrapper timed as ``F.rms_norm`` is (``median_ms``,
-    host cost included) and both by device time per call (profiler)."""
+    each served width, the wrapper timed as ``F.rms_norm`` and the plain
+    version are (``median_ms``, host cost included), and the wrapper and
+    ``F.rms_norm`` by device time per call (profiler)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel as K
@@ -703,11 +705,9 @@ def check_rmsnorm(gen, records):
                    library_kernels=lib_names, kernels_per_call=per_call,
                    bound_ms=bms, bound_by=by, bound_share=bms / dev,
                    wrapper_within_library=ms <= lib,
-                   plan=K.plan(d, torch.bfloat16, True)._asdict())
-        if (rows, d) in (RMSNORM_SERVING[0], (2048, 2048)):
-            rec.update(plain_ms=median_ms(lambda: rmsnorm_ref(x, w)),
-                       max_abs_err=max_err(K.rmsnorm(x, w),
-                                           rmsnorm_ref(x, w)))
+                   plan=K.plan(d, torch.bfloat16, True)._asdict(),
+                   plain_ms=median_ms(lambda: rmsnorm_ref(x, w)),
+                   max_abs_err=max_err(K.rmsnorm(x, w), rmsnorm_ref(x, w)))
         if (rows, d) == RMSNORM_SERVING[0]:
             records["rmsnorm"] = rec
         emit("kernels/rmsnorm-timing", **rec)
@@ -1982,8 +1982,10 @@ def _round_graph(drift, tgrid, n, k, s, per_call, phase):
     if not (rec["kernel_nodes"] == eager_kernels == eager_nodes) \
             or nodes["port_kernels"] != want_tags \
             or replay != _want(per_call, 1):
+        recorded = {e.key[:60]: e.count for e in events}
         raise AssertionError(f"{phase}: round graph {rec}, want the port's "
-                             f"kernels {want_tags}")
+                             f"kernels {want_tags}; the eager window "
+                             f"recorded {recorded}")
 
 
 def phase_device_loop(cfg, params, phase="device-loop"):
@@ -3863,21 +3865,27 @@ def _lm_card_vs_cpu(arch):
                                        for x, y in zip(a[1:], b[1:])))
 
 
-SPLIT_ARCH, SPLIT_STEPS = "qwen2-vl-7b", 16
+# (arch, the kernels its gap is split between): qwen2-vl's and
+# zamba2's, whose SSD layers also run ``ssd_chunk``
+SPLIT_ARCHS = (("qwen2-vl-7b", ("rmsnorm", "flash")),
+               ("zamba2-2.7b", ("rmsnorm", "flash", "ssd_chunk")))
+SPLIT_STEPS = 16
 
 
-def _kernel_split(arch=SPLIT_ARCH, steps=SPLIT_STEPS):
+def _kernel_split(arch, kernels, steps=SPLIT_STEPS):
     """Which kernel route carries an arch's gap against plain: its prefill
     (every position's logits) and ``steps`` teacher-forced decode steps
-    (the plain run's tokens) with both kernels, rmsnorm only (flash's
-    dispatch in ``models/layers.py`` sees no CUDA tensor) and flash only
-    (rmsnorm's in ``kernels/rmsnorm/ops.py`` sees none), each held to the
-    plain run: relative L2 and top-1 agreement."""
+    (the plain run's tokens) with every kernel of ``kernels`` (``both``),
+    then each alone (``<kernel>_only``: the others' dispatch sees no CUDA
+    tensor: rmsnorm's in ``kernels/rmsnorm/ops.py``, flash's in
+    ``models/layers.py``, ``ssd_chunk``'s in ``models/mamba2.py``), each
+    held to the plain run: relative L2 and top-1 agreement."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.models import api
     from repro_torch.models import layers as lm_layers
+    from repro_torch.models import mamba2 as lm_mamba2
     from repro_torch.serve import make_decode_step, make_prefill
     torch.cuda.empty_cache()
     cfg = get_config(arch)
@@ -3907,9 +3915,13 @@ def _kernel_split(arch=SPLIT_ARCH, steps=SPLIT_STEPS):
 
     plain, toks = run(False)
     rec = {}
-    for route, patch in (("both", {}),
-                         ("rmsnorm_only", {(lm_layers, "on_cuda"): off}),
-                         ("flash_only", {(rms_ops, "on_cuda"): off})):
+    dispatch = {"rmsnorm": (rms_ops, "on_cuda"),
+                "flash": (lm_layers, "on_cuda"),
+                "ssd_chunk": (lm_mamba2, "on_cuda")}
+    routes = [("both", {})] + [
+        (f"{k}_only", {dispatch[o]: off for o in kernels if o != k})
+        for k in kernels]
+    for route, patch in routes:
         saved = {k: getattr(*k) for k in patch}
         for (mod, name), fn in patch.items():
             setattr(mod, name, fn)
@@ -3942,9 +3954,11 @@ def phase_lm_generate(phase="lm-generate"):
         rec = _lm_full(arch)
         counts = {n: counts[n] + rec["launches"][n] for n in counts}
         emit(phase, card=CARD[0], seconds=time.perf_counter() - t0, **rec)
-    t0 = time.perf_counter()
-    emit(phase + "/kernel-split", card=CARD[0], **_kernel_split(),
-         seconds=time.perf_counter() - t0)
+    for arch, kernels in SPLIT_ARCHS:
+        t0 = time.perf_counter()
+        emit(phase + "/kernel-split", card=CARD[0],
+             **_kernel_split(arch, kernels),
+             seconds=time.perf_counter() - t0)
     t0 = time.perf_counter()
     reduced = {arch: _lm_card_vs_cpu(arch) for arch in LM_REDUCED}
     emit(phase + "/card-vs-cpu", card=CARD[0], prefill_atol=LM_F32_ATOL,

@@ -36,6 +36,10 @@ from repro_torch.dist.sharding import is_dtensor
 # handed to the wire, group size]
 WIRE_GROUPS: Dict[Tuple[str, str, str], list] = {}
 
+# ops of the functional-collective namespaces that move nothing: the wait
+# on a collective's result, and the wrap of that result for autograd
+NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+
 
 def reset_wire_bytes() -> None:
     WIRE_GROUPS.clear()
@@ -87,7 +91,7 @@ class CollectiveLog(TorchDispatchMode):
         out = func(*args, **kwargs)
         name = func._overloadpacket.__name__.rstrip("_")
         if func.namespace in ("_c10d_functional", "c10d_functional") \
-                and name != "wait_tensor":
+                and name not in NOT_COLLECTIVES:
             group = args[-1] if isinstance(args[-1], str) else \
                 kwargs.get("group_name")
             ts = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]

@@ -360,6 +360,19 @@ def block_range(n: int, d: int, mesh, placements) -> Tuple[int, int]:
     return idx * block, block
 
 
+def reduce_blocks(t, mesh, dims: Sequence[int], op: str = "sum"):
+    """``t``, this rank's partial result (a plain tensor), reduced with
+    ``op`` (``"sum"``, ``"max"``) over the mesh dims ``dims``: DTensor's
+    own all-reduce of a ``Partial`` (which ``collectives.CollectiveLog``
+    counts), the other mesh dims left as they are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    part = [Partial(op) if md in dims else Replicate()
+            for md in range(mesh.ndim)]
+    return DTensor.from_local(t, mesh, part, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
 def local_block(full, mesh, placements):
     """This rank's block of ``full`` under ``placements`` on ``mesh``."""
     out = full
@@ -859,9 +872,12 @@ def assign(dst, index, src) -> None:
     """``dst[index] = src`` in place. On a DTensor ``dst`` each rank writes
     its own block: ``src`` is laid out as ``dst`` (a redistribute that
     only cuts blocks where ``src`` was whole) and copied into the local
-    block; ``index`` may cut only dims that are whole on every rank (a
-    cache's sequence). DTensor's own ``index_put`` has no strategy on some
-    releases."""
+    block. ``index`` may cut a split dim: with a slice (a cache's sequence
+    split over ranks) ``src`` is whole along it and each rank writes the
+    part of the slice that falls in its block, if any; with a leading
+    integer (a layer of a cache whose layers are split) only the ranks
+    whose block holds it write. DTensor's own ``index_put`` has no
+    strategy on some releases."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     if not is_dtensor(dst):
@@ -877,14 +893,40 @@ def assign(dst, index, src) -> None:
     drop = 0  # leading integer indices (a cache's layer) drop their dims
     while drop < len(lead) and isinstance(lead[drop], int):
         drop += 1
+    local_index, cuts, mine = list(lead), [], True
+    for d in range(drop):  # a split dim's index: its owners write
+        if any(isinstance(p, Shard) and p.dim == d for p in want):
+            b0, n = block_range(dst.shape[d], d, mesh, dst.placements)
+            mine = mine and b0 <= lead[d] % dst.shape[d] < b0 + n
+            local_index[d] = lead[d] % dst.shape[d] - b0
     if drop:
-        if any(isinstance(p, Shard) and p.dim < drop for p in want):
-            raise ValueError("assign: an indexed dim is split")
-        want = tuple(Shard(p.dim - drop) if isinstance(p, Shard) else p
-                     for p in want)
+        want = tuple((Shard(p.dim - drop) if p.dim >= drop else Replicate())
+                     if isinstance(p, Shard) else p for p in want)
+    for d in range(drop, len(lead)):
+        if not isinstance(lead[d], slice) or lead[d] == slice(None):
+            continue
+        split = [md for md, p in enumerate(dst.placements)
+                 if isinstance(p, Shard) and p.dim == d
+                 and mesh.shape[md] > 1]
+        if not split:
+            continue
+        lo, hi, step = lead[d].indices(dst.shape[d])
+        if step != 1:
+            raise ValueError("assign: a strided slice of a split dim")
+        b0, n = block_range(dst.shape[d], d, mesh, dst.placements)
+        a = max(lo, b0)  # the slice's part in this block: [a, z)
+        z = max(min(hi, b0 + n), a)
+        local_index[d] = slice(a - b0, z - b0)
+        cuts.append((d - drop, a - lo if z > a else 0, z - a))
+        want = tuple(Replicate() if md in split else p
+                     for md, p in enumerate(want))
     if tuple(src.placements) != want:
         src = src.redistribute(mesh, want)
-    dst.to_local()[index] = src.to_local()
+    part = src.to_local()
+    for d, at, length in cuts:
+        part = part.narrow(d, at, length)
+    if mine:
+        dst.to_local()[tuple(local_index)] = part
 
 
 def take_rows(x, idx):

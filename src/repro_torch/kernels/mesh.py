@@ -8,7 +8,10 @@ and its output is laid out like its first input. Where the layout splits
 one, the inputs are first redistributed to the nearest layout that keeps it
 whole (that dim replicated), which is what GSPMD inserts around a Pallas
 call; each such redistribute is counted in :data:`REDISTRIBUTES`, keyed by
-kernel name.
+kernel name. A kernel that reduces across the blocks of a split itself (a
+collective inside it: decode attention's softmax over a KV cache split
+along its sequence) names the mesh dims of that split in ``reduce_over``,
+and its inputs keep their blocks there.
 """
 from __future__ import annotations
 
@@ -28,8 +31,21 @@ def _keep_whole(t, dims: Sequence[int]):
                  else p for p in t.placements)
 
 
+def split_dims(t, dim: int) -> tuple:
+    """The mesh dims of more than one rank over which DTensor ``t`` splits
+    its dim ``dim`` (``()`` for a plain tensor)."""
+    from torch.distributed.tensor import Shard
+
+    placements = getattr(t, "placements", ())
+    d = dim % t.dim()
+    return tuple(md for md, p in enumerate(placements)
+                 if isinstance(p, Shard) and p.dim == d
+                 and t.device_mesh.shape[md] > 1)
+
+
 def local_shards(name: str, kernel: Callable, args, whole: Sequence[tuple],
-                 same_layout: Sequence[int] = (), rows: Sequence = ()):
+                 same_layout: Sequence[int] = (), rows: Sequence = (),
+                 reduce_over: Sequence[int] = ()):
     """``kernel(*local blocks, *rows)`` as a DTensor laid out like
     ``args[0]``.
 
@@ -41,7 +57,10 @@ def local_shards(name: str, kernel: Callable, args, whole: Sequence[tuple],
     None) indexed by ``args[0]``'s dim 0, the same on every rank (the
     positions of a batch), passed on as this rank's rows. A plain tensor
     in ``args`` (a constant, the same on every rank) is taken as
-    replicated: each rank gets the whole of it."""
+    replicated: each rank gets the whole of it. ``reduce_over``: mesh
+    dims over which ``kernel`` reduces across ranks itself; ``args[0]``
+    is replicated on them, the other args keep their blocks there, and
+    ``same_layout`` does not compare them."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.dist.sharding import local_block
@@ -50,9 +69,13 @@ def local_shards(name: str, kernel: Callable, args, whole: Sequence[tuple],
     args = [a if isinstance(a, DTensor) else DTensor.from_local(
         a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args]
     lays = [list(_keep_whole(a, w)) for a, w in zip(args, whole)]
+    for md in reduce_over:
+        lays[0][md] = Replicate()
     if same_layout:
         group = [0] + list(same_layout)
         for md in range(len(lays[0])):
+            if md in reduce_over:
+                continue
             if len({repr(lays[i][md]) for i in group}) > 1:
                 for i in group:
                     lays[i][md] = Replicate()

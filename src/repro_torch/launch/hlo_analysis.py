@@ -38,7 +38,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.dist.collectives import group_axes
+from repro_torch.dist.collectives import NOT_COLLECTIVES, group_axes
 
 # The reference's HLO op names, and its wire multiplier per op.
 _MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
@@ -189,7 +189,7 @@ class TraceCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         name = func._overloadpacket.__name__.rstrip("_")
         if func.namespace in _FUNCTIONAL:
-            if name != "wait_tensor":
+            if name not in NOT_COLLECTIVES:
                 self._collective(name, args, kwargs, out)
             return out
         self.ops += 1

@@ -250,6 +250,9 @@ def attend_decode(q, k_cache, v_cache, cur_len,
     """
     if is_dtensor(q):  # on a mesh: each rank's rows and heads
         by_row = () if isinstance(cur_len, int) else (cur_len,)
+        if kmesh.split_dims(k_cache, 1):
+            return _attend_decode_split(q, k_cache, v_cache, cur_len, scale,
+                                        by_row)
         return kmesh.local_shards(
             "attend_decode",
             lambda a, b, c, *cl: attend_decode(a, b, c, *(cl or (cur_len,)),
@@ -275,6 +278,69 @@ def attend_decode(q, k_cache, v_cache, cur_len,
                        w.to(v_cache.dtype).to(torch.float32),
                        v_cache[:, :live].to(torch.float32))
     return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _attend_decode_split(q, k_cache, v_cache, cur_len, scale, by_row):
+    """:func:`attend_decode` on a mesh whose layout splits the cache's
+    sequence (dim 1): the softmax reduced across the sequence blocks in
+    place, as XLA reduces the reference's, where gathering the cache
+    would move all of it every layer and step. Each rank scores its own
+    block (its rows and heads as :func:`kmesh.local_shards` lays them
+    out); the row max, the softmax's denominator and the PV product's
+    partial sums are then all-reduced over the mesh dims of the split:
+    B·H·(Dh + 2) f32 a rank on the wire. The denominator is reduced
+    before the PV product, so that the weights are normalized before
+    their cast to the V dtype, as in the reference."""
+    from repro_torch.dist.sharding import reduce_blocks
+
+    mesh = k_cache.device_mesh
+    seq = kmesh.split_dims(k_cache, 1)
+    start, _ = block_range(k_cache.shape[1], 1, mesh, k_cache.placements)
+
+    def reduce(t, op):
+        return reduce_blocks(t, mesh, seq, op)
+
+    def block(qb, kb, vb, *cl):
+        return _decode_block(qb, kb, vb, cl[0] if cl else cur_len, scale,
+                             start, reduce)
+
+    return kmesh.local_shards(
+        "attend_decode", block, (q, k_cache, v_cache),
+        whole=((1, 3), (3,), (3,)), same_layout=(1, 2), rows=by_row,
+        reduce_over=seq)
+
+
+def _decode_block(q, k_cache, v_cache, cur_len, scale, start, reduce):
+    """One rank's part of :func:`_attend_decode_split`: q [B, 1, H, Dh]
+    against the cache block [B, n, KV, Dh] that holds positions
+    ``[start, start + n)``. ``reduce(t, op)`` reduces a partial result
+    across the blocks. A block wholly past the length adds exact zeros
+    (its max is ``NEG_INF``, which the reduced max outweighs); a host
+    length reads only the block's live prefix."""
+    b, _, h, dh = q.shape
+    n, kvh = k_cache.shape[1], k_cache.shape[2]
+    host = isinstance(cur_len, int)
+    live = min(max(cur_len - start, 0), n) if host else n
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = _group_q(q, kvh).to(k_cache.dtype) * torch.full(
+        (), scale, dtype=k_cache.dtype, device=q.device)  # [B,1,KV,G,Dh]
+    s = torch.einsum("bqhgk,bshk->bhgqs", qg.to(torch.float32),
+                     k_cache[:, :live].to(torch.float32))
+    neg = torch.full((), NEG_INF, dtype=s.dtype, device=s.device)
+    if not host:
+        pos = start + torch.arange(n, dtype=torch.int32, device=q.device)
+        mask = pos[None, None, None, None, :] < \
+            cur_len[:, None, None, None, None]
+        s = torch.where(mask, s, neg)
+    m = s.amax(dim=-1) if live else neg.expand(s.shape[:-1]).contiguous()
+    m = reduce(m, "max")
+    p = torch.exp(s - m[..., None])
+    den = reduce(p.sum(dim=-1), "sum")
+    w = p / den[..., None]
+    out = torch.einsum("bhgqs,bshk->bqhgk",
+                       w.to(v_cache.dtype).to(torch.float32),
+                       v_cache[:, :live].to(torch.float32))
+    return reduce(out, "sum").reshape(b, 1, h, dh).to(q.dtype)
 
 
 def attend(q, k, v, q_pos, k_pos, causal: bool, impl: str = "auto",

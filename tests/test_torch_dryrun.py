@@ -340,6 +340,12 @@ def _run_jobs(out):
                                st["cache"]["ssm"][0])
     res["ssd_layer"] = H.collective_bytes(tr.counter.collectives)
 
+    # reduced zamba2's long_500k cell in small: batch 1 on (8, 2), so that
+    # ``data`` falls back to the caches' kv_seq (8 of 64 positions a rank)
+    m82 = make_mesh((8, 2), ("data", "model"), device="cpu")
+    res["zamba2_long"] = D.build_lm_cell(
+        z, ShapeConfig("l", 64, 1, "decode"), m82)
+
     # one sharded matmul: [64, 128] rows on data @ [128, 256] cols on model
     tr = D.CellTrace(m22)
     with tr.fake_mode:
@@ -561,6 +567,33 @@ def test_zamba2_decode_ssd_layer_bytes_are_the_hand_count(jobs):
     whole = jobs["zamba2_decode"]
     assert whole["total"] >= 4 * cen["total"]
     assert not [e for e in whole["by_axis"] if e["axis"] == "data"]
+
+
+def test_zamba2_long_decode_merges_the_softmax_over_data(jobs):
+    """Reduced zamba2 at batch 1 on (8, 2) (the long_500k layout: the
+    shared attention's KV cache split along its sequence over ``data``):
+    over ``data`` the step only all-reduces the softmax merge, three f32
+    tensors a shared-attention call of B·H·(Dh + 2)·4 B in all (B 1, H
+    the rank's 2 of 4 heads, Dh 16; each all-reduce counted twice, as the
+    reference counts it), to within 1 %; no gather of a (bf16) cache
+    over any axis, and the cache's bytes a rank are the reference's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.zamba2 import _groups
+
+    r = jobs["zamba2_long"]
+    cfg = get_config("zamba2-2.7b", reduced=True)
+    cen = r["per_device"]["collective_bytes"]
+    over_data = _ops(cen, axis="data")
+    assert {(e["op"], e["dtype"]) for e in over_data} == {
+        ("all-reduce", "float32")}
+    assert not _ops(cen, "all-gather", dtype="bfloat16")  # the caches'
+    calls = _groups(cfg)[0]
+    merge = 1 * (cfg.num_heads // 2) * (cfg.resolved_head_dim + 2) * 4
+    assert sum(e["launches"] for e in over_data) == 3 * calls
+    got = sum(e["bytes"] for e in over_data) / 2
+    assert abs(got - calls * merge) <= 0.01 * calls * merge
+    assert r["bytes"]["cache"] == _ref_small_bytes(
+        "zamba2-2.7b", (1, 64), "decode", (8, 2))["cache"]
 
 
 def test_sharded_matmul_flops_are_the_hand_count(jobs):

@@ -767,11 +767,13 @@ def lm_max_len(prompt_len: int) -> int:
     return prompt_len + LM_MAX - LM_S0
 
 
-def _lm_run(cfg, params, prompt, src=None):
+def _lm_run(cfg, params, prompt, src=None, log_mesh=None):
     """Prefill logits, greedy tokens and the logits of each decode step
     (fed its own greedy tokens), and the cache's leaves' layout. The
     tokens come from ``greedy_generate``, enc-dec's (which it does not
-    take) from the decode loop."""
+    take) from the decode loop. With ``log_mesh``, each decode step's
+    collectives (:func:`_shape_log`), the cache's local blocks and the
+    prefill's cache (whole, with each leaf's dtype)."""
     from repro_torch.serve import greedy_generate, make_decode_step, \
         make_prefill
 
@@ -784,8 +786,16 @@ def _lm_run(cfg, params, prompt, src=None):
     dec = make_decode_step(cfg)
     toks = [torch.from_numpy(out["prefill"][:, -1:].argmax(-1)).to(
         torch.int32)]
+    if log_mesh is not None:
+        out["blocks"], out["shapes"] = _cache_blocks(cache), []
+        out["prefill_cache"] = {k: (_full(v), v.dtype)
+                                for k, v in cache.items()}
     for _ in range(LM_DECODE):
-        logits, cache = dec(params, toks[-1], cache)
+        with (_shape_log(log_mesh) if log_mesh is not None
+              else contextlib.nullcontext()) as log:
+            logits, cache = dec(params, toks[-1], cache)
+        if log is not None:
+            out["shapes"].append(list(log.shapes))
         out["decode"].append(_full(logits))
         toks.append(torch.from_numpy(out["decode"][-1].argmax(-1)).to(
             torch.int32))
@@ -1093,7 +1103,7 @@ def _ssd_layer(mesh):
 def _shape_log(mesh):
     """A ``collectives.CollectiveLog`` that also keeps, in order, each
     collective's (op, axis, input shapes) in ``log.shapes``."""
-    from repro_torch.dist.collectives import CollectiveLog
+    from repro_torch.dist.collectives import NOT_COLLECTIVES, CollectiveLog
 
     class ShapeLog(CollectiveLog):
         def __init__(self):
@@ -1105,7 +1115,7 @@ def _shape_log(mesh):
             name = func._overloadpacket.__name__.rstrip("_")
             if out is not NotImplemented and func.namespace in (
                     "_c10d_functional", "c10d_functional") \
-                    and name != "wait_tensor":
+                    and name not in NOT_COLLECTIVES:
                 group = args[-1] if isinstance(args[-1], str) else \
                     (kwargs or {}).get("group_name")
                 ts = args[0] if isinstance(args[0], (list, tuple)) \
@@ -1213,11 +1223,122 @@ def job_ssd_one(rank: int, world: int, io_dir: str):
     return out
 
 
+# --- job "kv_seq": W=4, decode over a KV cache split along its sequence ----
+
+# (key, arch, mesh): batch 1 under SERVE_RULES, so that ``data`` (which
+# the batch cannot take) falls back to the caches' ``kv_seq``; on (4, 1)
+# a rank holds 8 of the 32 positions, and the last block stays wholly
+# past the length through the 6 decode steps
+KV_SEQ_RUNS = tuple((f"{a}@{m[0]}x{m[1]}", a, m)
+                    for a in ("qwen1.5-0.5b", "zamba2-2.7b",
+                              "seamless-m4t-medium")
+                    for m in ((2, 2), (4, 1)))
+KV_SEQ_B = 1
+# the direct attend_decode case: [B, Smax, KV, G, Dh] and per-row lengths
+# (row 0's blocks past the first are wholly masked on (4, 1))
+KV_SEQ_ATTN = (2, 32, 2, 2, 16)
+KV_SEQ_LENS = (5, 27)
+
+
+def _cache_blocks(cache):
+    """The local block shape of one layer of each k/v cache leaf."""
+    return {k: tuple(v.to_local().shape[1:]) for k, v in cache.items()
+            if k in ("k", "v", "ck", "cv") and hasattr(v, "to_local")}
+
+
+def _kv_seq_attn(mesh):
+    """``attend_decode`` alone on DTensor q / caches whose sequence is
+    split over ``data`` (and kv heads over ``model``), with the
+    reference's int32 [B] lengths and with a host length, beside one
+    device; the collectives of each call."""
+    from repro_torch.dist.sharding import local_dtensor
+    from repro_torch.models import layers as L
+    from torch.distributed.tensor import Replicate, Shard
+
+    b, smax, kvh, g, dh = KV_SEQ_ATTN
+    gen = torch.Generator().manual_seed(12)
+    q = torch.randn(b, 1, kvh * g, dh, generator=gen)
+    k = torch.randn(b, smax, kvh, dh, generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, smax, kvh, dh, generator=gen).to(torch.bfloat16)
+    heads = Shard(2) if mesh.shape[1] > 1 else Replicate()
+    dq = local_dtensor(q, mesh, (Replicate(), heads))
+    dk, dv = (local_dtensor(t, mesh, (Shard(1), heads)) for t in (k, v))
+    out = {}
+    for name, cur in (("lens", torch.tensor(KV_SEQ_LENS, dtype=torch.int32)),
+                      ("host", KV_SEQ_LENS[0])):
+        with _shape_log(mesh) as log:
+            got = L.attend_decode(dq, dk, dv, cur)
+        out[name] = {"one": _full(L.attend_decode(q, k, v, cur)),
+                     "mesh": _full(got), "shapes": list(log.shapes),
+                     "counts": dict(log.counts)}
+    return out
+
+
+def _decode_from(cfg, params, run):
+    """One device's decode steps from ``run``'s prefill cache, fed
+    ``run``'s greedy tokens: each step's logits."""
+    from repro_torch.serve import make_decode_step
+
+    cache = {k: torch.from_numpy(a.copy()).to(dt)
+             for k, (a, dt) in run.pop("prefill_cache").items()}
+    dec, out = make_decode_step(cfg), []
+    fed = [run["prefill"]] + run["decode"][:-1]
+    for logits in fed:
+        tok = torch.from_numpy(logits[:, -1:].argmax(-1)).to(torch.int32)
+        step, cache = dec(params, tok, cache)
+        out.append(_full(step))
+    return out
+
+
+def job_kv_seq(rank: int, world: int, io_dir: str):
+    """Reduced dense, zamba2 and enc-dec at batch 1 on (2, 2) and on
+    (4, 1) under ``SERVE_RULES``: prefill and greedy decode on the mesh
+    (the decode steps' collectives logged) and on one device; then
+    attend_decode alone on both meshes."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (SERVE_RULES, ShardingCtx,
+                                           distribute_tree, use_sharding)
+    from repro_torch.kernels import mesh as kmesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.utils import pspec
+
+    with open(os.path.join(io_dir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    t0 = time.time()
+    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu")
+              for shape in {shape for _, _, shape in KV_SEQ_RUNS}}
+    out = {"attn": {}}
+    with torch.no_grad():
+        for key, arch, shape in KV_SEQ_RUNS:
+            mesh = meshes[shape]
+            ctx = ShardingCtx(mesh, SERVE_RULES)
+            cfg = get_config(arch, reduced=True)
+            params = _params(cfg, inp["params"][arch])
+            prompt = torch.from_numpy(inp["prompt"][key])
+            src = inp["src"].get(arch)
+            src = None if src is None else torch.from_numpy(src)
+            one = _lm_run(cfg, params, prompt, src)
+            dparams = distribute_tree(
+                params, ctx, pspec.logical_axes(api.model_specs(cfg)))
+            kmesh.REDISTRIBUTES.clear()
+            with use_sharding(mesh, SERVE_RULES):
+                on_mesh = _lm_run(cfg, dparams, prompt, src, log_mesh=mesh)
+            on_mesh["redistributes"] = dict(kmesh.REDISTRIBUTES)
+            out[key] = {"one": one, "mesh": on_mesh,
+                        "resumed": _decode_from(cfg, params, on_mesh)}
+            print(f"[kv_seq] {key} {time.time() - t0:.1f}s", flush=True)
+        for shape, mesh in sorted(meshes.items()):
+            out["attn"][shape] = _kv_seq_attn(mesh)
+    print(f"[kv_seq] done {time.time() - t0:.1f}s", flush=True)
+    return out
+
+
 JOBS = {"steps": (job_steps, 4), "one": (job_one, 1),
         "elastic": (job_elastic, 2), "serve": (job_serve, 4),
         "lm_serve": (job_lm_serve, 4), "analysis": (job_analysis, 4),
         "layouts": (job_layouts, 4), "ssd_heads": (job_ssd_heads, 4),
-        "ssd_one": (job_ssd_one, 1)}
+        "ssd_one": (job_ssd_one, 1), "kv_seq": (job_kv_seq, 4)}
 
 
 def _rank(rank: int, job: str, world: int, io_dir: str):
